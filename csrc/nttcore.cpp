@@ -1,6 +1,6 @@
 // nttcore — native host-side runtime for tpu-ntt.
 //
-// The TPU-native analog of the reference's C software stack
+// The accelerator library's analog of the reference's C software stack
 // (NTT_Software/NTT-RED, NTT) and host application layer: everything the
 // host must do fast that XLA should not (64-bit modular arithmetic via
 // __int128, RNS residue splitting, Garner CRT reconstruction with signed

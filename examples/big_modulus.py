@@ -1,7 +1,7 @@
 """62-bit-modulus negacyclic products, fully device-resident.
 
 BigQPlan splits each operand into NTT-friendly ~29-bit RNS channels,
-multiplies every channel with a fused Pallas kernel, and reconstructs
+multiplies the channels in one stacked XLA graph, and reconstructs
 mod q with the device-side Garner CRT — one XLA dispatch, two packed
 int32 planes per operand across the host link.
 

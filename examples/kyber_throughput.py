@@ -1,9 +1,10 @@
-"""Batched ML-KEM-style polynomial products at full chip throughput.
+"""Batched ML-KEM-style polynomial products through the public Ring API.
 
-Demonstrates the serving-style hot path: one fused Pallas kernel per chip
-(PallasIncompletePolymul: the q=3329 ring has no 512th root, so the
-transform is the levels=1 incomplete NTT), optionally data-parallel over
-every chip in the mesh with dp_polymul (no cross-chip communication).
+The q=3329 ring has no 512th root of unity, so the transform is the
+levels=1 incomplete NTT.  ``Ring`` asks the platform rule
+(``tpu_ntt.dispatch.select_plan``) for the plan: the fused kernel on a
+GPU, the XLA ``IncompletePlan`` on the CPU.  The timed call is the served
+path: host arrays in, host arrays out.
 
 Run:  python examples/kyber_throughput.py [batch]
 """
@@ -12,36 +13,26 @@ import sys
 import time
 
 import numpy as np
-import jax
 
-from tpu_ntt import PallasIncompletePolymul
-from tpu_ntt.parallel.sharded import dp_polymul, make_mesh
+from tpu_ntt import Ring, ref
 
 batch = int(sys.argv[1]) if len(sys.argv) > 1 else 8192
 n, q = 256, 3329
-on_cpu = jax.default_backend() == "cpu"
-plan = PallasIncompletePolymul(n, q, interpret=on_cpu)
+R = Ring(n, q)
 
 rng = np.random.default_rng(0)
-a = rng.integers(0, q, (batch, n)).astype(np.int32)
-b = rng.integers(0, q, (batch, n)).astype(np.int32)
+a = R.random((batch, n), rng)
+b = R.random((batch, n), rng)
 
-ndev = len(jax.devices())
-if ndev > 1 and batch % ndev == 0:
-    f = dp_polymul(plan, make_mesh())        # every chip runs the kernel
-else:
-    f = jax.jit(plan.polymul)
-
-c = np.asarray(f(a, b))                      # warm-up + correctness probe
+c = R.mul(a, b)                              # warm-up + correctness probe
 t0 = time.perf_counter()
 iters = 20
 for _ in range(iters):
-    f(a, b).block_until_ready()
+    R.mul(a, b)
 dt = (time.perf_counter() - t0) / iters
-print(f"{batch} kyber polymuls in {dt * 1e3:.2f} ms  "
-      f"({batch / dt / 1e6:.1f} M/s on {ndev} device(s))")
+print(f"{batch} kyber polymuls in {dt * 1e3:.2f} ms host to host "
+      f"({batch / dt / 1e6:.2f} M/s, {R})")
 
 # spot-check one row against the independent schoolbook oracle
-from tpu_ntt import ref
 assert np.array_equal(c[0], ref.schoolbook_negacyclic(a[0], b[0], q))
 print("row 0 matches the schoolbook oracle")

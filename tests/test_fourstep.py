@@ -1,128 +1,111 @@
-"""Fused four-step Pallas kernel tests (interpret mode on CPU; real-TPU
-execution is covered by bench.py's large config)."""
+"""Four-step plan tests: the XLA ShardedPlan on a one-device mesh, which
+serves every ring past 8192 points (large, large23, xlarge and the big-q
+channels), in each arithmetic flavor."""
 
 import numpy as np
 import pytest
 
-from tpu_ntt.ops.fourstep import PallasFourStep, supported
 from tpu_ntt.params import find_params, make_params
+from tpu_ntt.parallel.sharded import ShardedPlan, make_mesh
 from tpu_ntt.transform import Plan
 
 
+def _fourstep(p, a, b):
+    sp = ShardedPlan(p, make_mesh(1))
+    return sp.unshard(sp.polymul_jit(sp.shard_coeffs(a), sp.shard_coeffs(b)))
+
+
+def _flat(p, a, b):
+    return np.asarray(Plan(p).polymul_jit(a, b))
+
+
 def test_fourstep_mont_bit_exact(rng):
-    """28-bit prime (large-config class): fused kernel == flat XLA Plan,
-    including all-(q-1) lazy-bound rows."""
+    """28-bit prime (large-config class, Montgomery flavor): four-step ==
+    flat XLA Plan, including all-(q-1) rows."""
     p = find_params(4096, 28)
-    fs = PallasFourStep(p, tile=1, interpret=True)
-    assert fs.mont and fs.n1 * fs.n2 == 4096
     a = rng.integers(0, p.q, (3, 4096)).astype(np.int32)
     b = rng.integers(0, p.q, (3, 4096)).astype(np.int32)
     a[1] = p.q - 1
     b[1] = p.q - 1
-    np.testing.assert_array_equal(np.asarray(fs.polymul(a, b)),
-                                  np.asarray(Plan(p).polymul_jit(a, b)))
+    np.testing.assert_array_equal(_fourstep(p, a, b), _flat(p, a, b))
 
 
 def test_fourstep_shoup_bit_exact(rng):
-    """Reference SW modulus q=12289 at n=4096 through the lazy flavor."""
+    """Reference SW modulus q=12289 at n=4096 through the Shoup flavor."""
     p = make_params(4096, 12289)
-    fs = PallasFourStep(p, tile=2, interpret=True)
-    assert not fs.mont
     a = rng.integers(0, p.q, (3, 4096)).astype(np.int32)
     b = rng.integers(0, p.q, (3, 4096)).astype(np.int32)
     a[0] = p.q - 1
     b[0] = p.q - 1
-    np.testing.assert_array_equal(np.asarray(fs.polymul(a, b)),
-                                  np.asarray(Plan(p).polymul_jit(a, b)))
+    np.testing.assert_array_equal(_fourstep(p, a, b), _flat(p, a, b))
 
 
 def test_fourstep_cyclic(rng):
     """x^n - 1 ring (psi=0) — the FPGA hardware-flow semantics."""
     p = make_params(4096, 12289, negacyclic=False)
-    fs = PallasFourStep(p, tile=1, interpret=True)
     a = rng.integers(0, p.q, (2, 4096)).astype(np.int32)
     b = rng.integers(0, p.q, (2, 4096)).astype(np.int32)
-    np.testing.assert_array_equal(np.asarray(fs.polymul(a, b)),
-                                  np.asarray(Plan(p).polymul_jit(a, b)))
+    np.testing.assert_array_equal(_fourstep(p, a, b), _flat(p, a, b))
 
 
 def test_fourstep_batch_padding(rng):
-    p = make_params(4096, 12289)
-    fs = PallasFourStep(p, tile=2, interpret=True)
-    a = rng.integers(0, p.q, (3, 4096)).astype(np.int32)   # 3 % 2 != 0
-    b = rng.integers(0, p.q, (3, 4096)).astype(np.int32)
-    c = np.asarray(fs.polymul(a, b))
-    assert c.shape == (3, 4096)
-    np.testing.assert_array_equal(
-        c[2], np.asarray(Plan(p).polymul_jit(a[2:], b[2:]))[0])
+    """An odd batch through the engine's four-step path (n > 8192)."""
+    from tpu_ntt.runtime.engine import PolyMultEngine
+    p = make_params(16384, 65537)
+    eng = PolyMultEngine(p.n, p.q)
+    assert eng.kind == "fourstep"
+    a = rng.integers(0, p.q, (3, p.n))
+    b = rng.integers(0, p.q, (3, p.n))
+    c = eng.multiply(a, b)
+    assert c.shape == (3, p.n)
+    np.testing.assert_array_equal(c[2], eng.multiply(a[2:], b[2:])[0])
 
 
-def test_fourstep_explicit_split(rng):
-    p = make_params(4096, 12289)
-    fs = PallasFourStep(p, n1=16, tile=1, interpret=True)
-    assert (fs.n1, fs.n2) == (16, 256)
-    a = rng.integers(0, p.q, (2, 4096)).astype(np.int32)
-    b = rng.integers(0, p.q, (2, 4096)).astype(np.int32)
-    np.testing.assert_array_equal(np.asarray(fs.polymul(a, b)),
-                                  np.asarray(Plan(p).polymul_jit(a, b)))
+@pytest.mark.parametrize("n,split", [(4096, (64, 64)), (1 << 15, (256, 128))])
+def test_fourstep_explicit_split(n, split):
+    """n = n1·n2 with the factors as square as possible."""
+    sp = ShardedPlan(find_params(n, 28), make_mesh(1))
+    assert (sp.n1, sp.n2) == split
 
 
-def test_fourstep_supported_gate():
-    assert not supported(make_params(256, 12289))       # too small
-    assert supported(find_params(1 << 16, 28))
-    big = find_params(4096, 30)
-    assert not supported(big)                            # q >= 2^29
-    with pytest.raises(ValueError):
-        PallasFourStep(make_params(256, 12289))
+@pytest.mark.parametrize("n,q,kind", [(8192, 65537, "xla"),
+                                      (16384, 65537, "fourstep"),
+                                      (16384, (1 << 61) - 1, "bigq")])
+def test_fourstep_supported_gate(n, q, kind):
+    """The platform rule hands rings past 8192 points to the four-step
+    plan on both platforms; big q goes to the RNS channels."""
+    from tpu_ntt.dispatch import select_plan
+    for platform in ("cpu", "gpu"):
+        assert select_plan(n, q, platform=platform) == kind
 
 
 def test_fourstep_f32_bit_exact(rng):
-    """Float-assisted-Barrett flavor (2^14 <= q < 2^23) at n=4096,
-    including all-(q-1) rows at the lazy bound."""
+    """Float-assisted-Barrett flavor (2^15 <= q < 2^23) at n=4096,
+    including all-(q-1) rows."""
     from tpu_ntt.params import find_ntt_prime
     q = find_ntt_prime(22, 4096)
     p = make_params(4096, q)
-    fs = PallasFourStep(p, tile=1, interpret=True)
-    assert fs.flavor == "f32" and not fs.mont
     a = rng.integers(0, q, (2, 4096)).astype(np.int32)
     b = rng.integers(0, q, (2, 4096)).astype(np.int32)
     a[1] = q - 1
     b[1] = q - 1
-    np.testing.assert_array_equal(np.asarray(fs.polymul(a, b)),
-                                  np.asarray(Plan(p).polymul_jit(a, b)))
+    np.testing.assert_array_equal(_fourstep(p, a, b), _flat(p, a, b))
 
 
-def test_blocked_fourstep_sparse_exact(rng):
-    """PallasFourStepBlocked (n=2^17, interpret): sparse operands give an
-    exact hand-computable negacyclic oracle; also cross-check a dense
-    random row against the independently-tested XLA ShardedPlan."""
-    from tpu_ntt.ops.fourstep import PallasFourStepBlocked, blocked_supported
-    from tpu_ntt.params import find_params
-
+def test_blocked_fourstep_sparse_exact():
+    """n=2^17 through the engine: sparse operands give an exact
+    hand-computable negacyclic oracle."""
+    from tpu_ntt.runtime.engine import PolyMultEngine
     n = 1 << 17
     p = find_params(n, 28)
-    assert blocked_supported(p)
-    plan = PallasFourStepBlocked(p, interpret=True)
-
-    # sparse: a = 3 + 5·x^(n-1), b = 7 + 2·x^2
+    eng = PolyMultEngine(n, p.q)
     a = np.zeros((1, n), np.int64)
     b = np.zeros((1, n), np.int64)
-    a[0, 0], a[0, n - 1] = 3, 5
-    b[0, 0], b[0, 2] = 7, 2
+    a[0, 0], a[0, n - 1] = 3, 5                # a = 3 + 5·x^(n-1)
+    b[0, 0], b[0, 2] = 7, 2                    # b = 7 + 2·x^2
     want = np.zeros(n, np.int64)
     want[0] = 3 * 7
     want[2] = 3 * 2
     want[n - 1] = 5 * 7
-    want[1] = (-5 * 2) % p.q                 # x^(n+1) wraps to -x^1
-    out = np.asarray(plan.polymul(a, b))[0]
-    np.testing.assert_array_equal(out, want % p.q)
-
-    # dense cross-check vs the XLA four-step (one row)
-    from tpu_ntt.parallel.sharded import ShardedPlan, make_mesh
-    sp = ShardedPlan(p, make_mesh(1))
-    ad = rng.integers(0, p.q, (1, n))
-    bd = rng.integers(0, p.q, (1, n))
-    got = np.asarray(plan.polymul(ad, bd))
-    ref_out = sp.unshard(sp.polymul_jit(sp.shard_coeffs(ad),
-                                        sp.shard_coeffs(bd)))
-    np.testing.assert_array_equal(got, np.asarray(ref_out))
+    want[1] = (-5 * 2) % p.q                   # x^(n+1) wraps to -x^1
+    np.testing.assert_array_equal(eng.multiply(a, b)[0], want % p.q)

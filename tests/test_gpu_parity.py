@@ -1,23 +1,16 @@
 """On-device parity suite — the real-hardware testbench discipline of the
 reference (NTT_PolyMul_test.v:165-226, NTTN_test.v:47-56 run golden vectors
 against the actual board; here the golden vectors, the compiled-C parity
-products, and kernel-vs-oracle equality run through the real, non-interpret
-Pallas kernels on the actual TPU chip).
+products, and kernel-vs-oracle equality run through the compiled fused
+kernel and the XLA plans on a GPU).
 
-Run with::
+Run on a machine with a GPU with::
 
-    TPU_NTT_TEST_TPU=1 python -m pytest tests/ -m tpu -q
+    JAX_PLATFORMS=cuda python -m pytest tests/ -m gpu -q
 
-Skipped entirely in the default CPU session.  On success the module writes
-a per-round artifact (default ``PARITY_TPU_r03.json``, override with
-``TPU_NTT_PARITY_OUT``) recording every bit-exactness check and the device
-it ran on.
+Every test here is marked ``gpu`` and takes the ``gpu`` fixture, which
+skips it when JAX's default backend is not a GPU.
 """
-
-import json
-import os
-import pathlib
-import time
 
 import numpy as np
 import pytest
@@ -28,37 +21,7 @@ from tpu_ntt.params import find_params, make_params, preset
 from conftest import read_hex_vectors
 from test_parity_c import build_c_oracle, _call_product
 
-pytestmark = pytest.mark.tpu
-
-_REPO = pathlib.Path(__file__).resolve().parents[1]
-
-
-# ---------------------------------------------------------------------------
-# artifact plumbing
-# ---------------------------------------------------------------------------
-
-@pytest.fixture(scope="module")
-def artifact():
-    import jax
-    entries = []
-    yield entries
-    if not entries:
-        return
-    dev = jax.devices()[0]
-    payload = {
-        "what": "on-device bit-exactness parity run (pytest -m tpu)",
-        "platform": dev.platform,
-        "device_kind": dev.device_kind,
-        "jax_version": jax.__version__,
-        "timestamp": time.strftime("%Y-%m-%d %H:%M:%S"),
-        "checks": entries,
-    }
-    out = os.environ.get("TPU_NTT_PARITY_OUT", "PARITY_TPU_r05.json")
-    (_REPO / out).write_text(json.dumps(payload, indent=1))
-
-
-def _record(entries, check, **kv):
-    entries.append({"check": check, "bit_exact": True, **kv})
+pytestmark = [pytest.mark.gpu, pytest.mark.usefixtures("gpu")]
 
 
 def _sparse_poly(rng, n, q, nnz=6):
@@ -90,7 +53,7 @@ def _sparse_negacyclic(a, b, q):
 # golden ModelSim vectors through the device (NTTN_test.v analog)
 # ---------------------------------------------------------------------------
 
-def test_golden_vectors_on_device(reference_dir, artifact):
+def test_golden_vectors_on_device(reference_dir):
     import jax
     from tpu_ntt.transform import Plan
     base = reference_dir / "Hardware_Multiplier/simulation/modelsim/test"
@@ -107,11 +70,9 @@ def test_golden_vectors_on_device(reference_dir, artifact):
     got_i = np.asarray(inv(idin[None].astype(np.int32)))[0]
     got_i = got_i.astype(np.int64) * p.n_inv % p.q
     np.testing.assert_array_equal(got_i, idout)
-    _record(artifact, "modelsim_golden_vectors", config="hw256", n=p.n,
-            q=p.q, vectors=["NTT_DIN->NTT_DOUT", "INTT_DIN->INTT_DOUT"])
 
 
-def test_rtl_testbench_product_on_device(artifact):
+def test_rtl_testbench_product_on_device():
     """(1+2x+3x^2)(2+2x) through the device GO-flow twin
     (NTT_PolyMul_test.v:165-196)."""
     import jax
@@ -126,20 +87,19 @@ def test_rtl_testbench_product_on_device(artifact):
     want = np.zeros(p.n, np.int64)
     want[:4] = [2, 6, 10, 6]
     np.testing.assert_array_equal(c, want)
-    _record(artifact, "rtl_testbench_product", config="hw256", n=p.n, q=p.q)
 
 
 # ---------------------------------------------------------------------------
 # compiled-C parity through the real fused kernels
 # ---------------------------------------------------------------------------
 
-def test_c_parity_through_pallas(reference_dir, rng, artifact):
-    """ntt_red256_product1/4 bit-exact vs the real (non-interpret)
-    PallasPolymul kernel on the chip."""
-    from tpu_ntt.ops.butterfly import PallasPolymul
+def test_c_parity_through_fused_kernel(reference_dir, rng):
+    """ntt_red256_product1/4 bit-exact vs the compiled fused kernel."""
+    from tpu_ntt.ops.fused import FusedPolymul
+    from tpu_ntt.transform import Plan
     lib = build_c_oracle(reference_dir)
     p = preset("sw256")
-    pk = PallasPolymul(p)
+    pk = FusedPolymul(Plan(p))
     rows = 16
     a = rng.integers(0, p.q, (rows, p.n)).astype(np.int32)
     b = rng.integers(0, p.q, (rows, p.n)).astype(np.int32)
@@ -148,9 +108,6 @@ def test_c_parity_through_pallas(reference_dir, rng, artifact):
         for cname in ("ntt_red256_product1", "ntt_red256_product4"):
             want = _call_product(lib, cname, a[i], b[i])
             np.testing.assert_array_equal(got[i], want)
-    _record(artifact, "compiled_c_parity_pallas", config="sw256", n=p.n,
-            q=p.q, rows=rows,
-            oracles=["ntt_red256_product1", "ntt_red256_product4"])
 
 
 # ---------------------------------------------------------------------------
@@ -158,24 +115,24 @@ def test_c_parity_through_pallas(reference_dir, rng, artifact):
 # ---------------------------------------------------------------------------
 
 FLAVOR_CASES = [
-    ("sw256", None, None),            # lazy Shoup, q < 2^14
-    ("hw256", None, None),            # lazy Shoup, second modulus
+    ("sw256", None, None),            # Shoup, q < 2^15
+    ("hw256", None, None),            # Shoup, second modulus
     ("dilithium256", None, None),     # float-assisted Barrett, q < 2^23
     (None, 256, 28),                  # digit-serial Montgomery, q < 2^29
 ]
 
 
 @pytest.mark.parametrize("name,n,bits", FLAVOR_CASES)
-def test_pallas_kernel_on_device(rng, artifact, name, n, bits):
-    from tpu_ntt.ops.butterfly import PallasPolymul
+def test_fused_kernel_on_device(rng, name, n, bits):
+    from tpu_ntt.ops.fused import FusedPolymul
     from tpu_ntt.transform import Plan
     p = preset(name) if name else find_params(n, bits)
-    pk = PallasPolymul(p)
     plan = Plan(p)
+    pk = FusedPolymul(plan)
     rows = 16
     a = rng.integers(0, p.q, (rows, p.n)).astype(np.int32)
     b = rng.integers(0, p.q, (rows, p.n)).astype(np.int32)
-    a[0] = p.q - 1                      # lazy-range extremes
+    a[0] = p.q - 1                      # range extremes
     b[0] = p.q - 1
     got = np.asarray(pk.polymul(a, b))
     for i in range(rows):
@@ -187,15 +144,13 @@ def test_pallas_kernel_on_device(rng, artifact, name, n, bits):
     np.testing.assert_array_equal(f_kernel, f_plan)
     np.testing.assert_array_equal(np.asarray(pk.inverse(f_kernel)),
                                   np.asarray(plan.inverse_jit(f_plan)))
-    _record(artifact, "pallas_kernel_vs_oracle",
-            config=name or f"mont{bits}", n=p.n, q=int(p.q), rows=rows,
-            flavor=pk.flavor, layout="cm" if pk.cm else "rows")
 
 
-def test_incomplete_kyber_on_device(rng, artifact):
-    from tpu_ntt.ops.butterfly import PallasIncompletePolymul
+def test_incomplete_kyber_on_device(rng):
+    from tpu_ntt.ops.fused import FusedPolymul
+    from tpu_ntt.schemes import IncompletePlan
     n, q = 256, 3329
-    pk = PallasIncompletePolymul(n, q)
+    pk = FusedPolymul(IncompletePlan(n, q, levels=1))
     rows = 16
     a = rng.integers(0, q, (rows, n)).astype(np.int32)
     b = rng.integers(0, q, (rows, n)).astype(np.int32)
@@ -215,24 +170,22 @@ def test_incomplete_kyber_on_device(rng, artifact):
                 want = (want + ref.schoolbook_negacyclic(
                     A[r, i, j], s[r, j], q)) % q
             np.testing.assert_array_equal(mv[r, i].astype(np.int64), want)
-    _record(artifact, "incomplete_kernel_vs_oracle", config="kyber", n=n,
-            q=q, rows=rows, matvec_k=k)
 
 
-def test_auto_dispatch_reaches_fused_kernel_on_device(rng, artifact):
-    """VERDICT r4 task-1 'done' pin: on real hardware the PUBLIC entry
-    points — PolyMultEngine(backend='auto'), kyber_plan(), auto_plan() —
-    reach the fused incomplete-NTT kernel (the reference mode FSM always
-    reaches the PE array, PolyMult.v:110-124), and the fused matvec is
-    what IncompletePlan.matvec dispatches to."""
-    from tpu_ntt.ops.butterfly import PallasIncompletePolymul
+def test_auto_dispatch_reaches_fused_kernel_on_device(rng):
+    """On a GPU the PUBLIC entry points — PolyMultEngine(backend='auto'),
+    kyber_plan(), auto_plan() — reach the fused kernel (the reference
+    mode FSM always reaches the PE array, PolyMult.v:110-124), and the
+    kernel's matvec equals the XLA IncompletePlan's."""
+    from tpu_ntt.ops.fused import FusedPolymul
     from tpu_ntt.runtime.engine import PolyMultEngine
     from tpu_ntt.schemes import auto_plan, kyber_plan
     eng = PolyMultEngine(256, 3329)           # backend="auto"
-    assert eng.kind == "incomplete-pallas"
+    assert eng.kind == "fused-incomplete"
     kp = kyber_plan()
-    assert isinstance(kp.fast, PallasIncompletePolymul)
-    assert isinstance(auto_plan(256, 3329).fast, PallasIncompletePolymul)
+    assert isinstance(kp, FusedPolymul)
+    assert isinstance(auto_plan(256, 3329), FusedPolymul)
+    assert isinstance(auto_plan(256, 12289), FusedPolymul)
     a = rng.integers(0, 3329, (4, 256)).astype(np.int32)
     b = rng.integers(0, 3329, (4, 256)).astype(np.int32)
     c = np.asarray(kp.polymul(a, b))
@@ -241,29 +194,25 @@ def test_auto_dispatch_reaches_fused_kernel_on_device(rng, artifact):
         want = ref.schoolbook_negacyclic(a[i], b[i], 3329)
         np.testing.assert_array_equal(c[i], want)
         np.testing.assert_array_equal(ce[i], want)
-    # public matvec hits the fused module-product kernel
+    # public matvec runs the kernel's transforms
     k = 3
     A = rng.integers(0, 3329, (2, k, k, 256)).astype(np.int32)
     s = rng.integers(0, 3329, (2, k, 256)).astype(np.int32)
-    assert kp.fast.matvec_supported(k, k)
     got = np.asarray(kp.matvec(A, s))
-    want = np.asarray(kp.matvec_xla(A, s))
+    want = np.asarray(kp.plan.matvec(A, s))
     np.testing.assert_array_equal(got, want)
-    _record(artifact, "public_auto_dispatch_fused", engine_kind=eng.kind,
-            kyber_fast=type(kp.fast).__name__, matvec_k=k)
 
 
-def test_cyclic_fused_dispatch_on_device(rng, artifact):
-    """VERDICT r4 missing-#2 'done' pin: the HARDWARE's own product
-    semantics — the cyclic ring (PolyMult.v:176-238, no psi twist) —
-    dispatches to a FUSED kernel on real hardware through the public
-    Ring/engine surface, bit-exact vs both the schoolbook and the
-    GO-flow twin hw_polymul."""
-    from tpu_ntt.ops.butterfly import PallasPolymul
+def test_cyclic_fused_dispatch_on_device(rng):
+    """The HARDWARE's own product semantics — the cyclic ring
+    (PolyMult.v:176-238, no psi twist) — dispatches to the fused kernel
+    through the public Ring/engine surface, bit-exact vs both the
+    schoolbook and the GO-flow twin hw_polymul."""
+    from tpu_ntt.ops.fused import FusedPolymul
     from tpu_ntt.ring import Ring
     R = Ring(256, 7681, negacyclic=False)
-    assert R._engine.kind == "pallas", R._engine.kind
-    assert isinstance(R._engine.plan, PallasPolymul)
+    assert R._engine.kind == "fused", R._engine.kind
+    assert isinstance(R._engine.plan, FusedPolymul)
     a = rng.integers(0, 7681, (4, 256)).astype(np.int64)
     b = rng.integers(0, 7681, (4, 256)).astype(np.int64)
     c = R.mul(a, b)
@@ -273,14 +222,11 @@ def test_cyclic_fused_dispatch_on_device(rng, artifact):
             c[i], ref.schoolbook_cyclic(a[i], b[i], 7681))
         np.testing.assert_array_equal(
             c[i].astype(np.int64), ref.hw_polymul(a[i], b[i], p))
-    _record(artifact, "cyclic_fused_dispatch", n=256, q=7681,
-            engine_kind=R._engine.kind)
 
 
-def test_incomplete_l2_on_device(rng, artifact):
-    """L=2 incomplete point (q=2689: order-128 root only) on the chip —
-    levels>1 was previously pinned on hardware only at L=1 (VERDICT r3
-    next-round #8)."""
+def test_incomplete_l2_on_device(rng):
+    """L=2 incomplete point (q=2689: order-128 root only) on the card —
+    the XLA IncompletePlan (the fused kernel covers L=1 only)."""
     from tpu_ntt.schemes import IncompletePlan
     ip = IncompletePlan(256, 2689)
     assert ip.levels == 2
@@ -290,30 +236,28 @@ def test_incomplete_l2_on_device(rng, artifact):
     for i in range(4):
         np.testing.assert_array_equal(
             c[i], ref.schoolbook_negacyclic(a[i], b[i], 2689))
-    _record(artifact, "incomplete_l2_vs_oracle", n=256, q=2689, levels=2)
 
 
-def test_fourstep_large_on_device(rng, artifact):
-    """n=2^16 fused four-step kernel vs the exact sparse oracle — the
-    large-ring datapath (NTTN.v:25-27 scales to 2^15; here 2^16)."""
-    from tpu_ntt.ops.fourstep import PallasFourStep, supported
+def test_fourstep_large_on_device(rng):
+    """n=2^16 four-step plan on a one-device mesh vs the exact sparse
+    oracle — the large-ring datapath (NTTN.v:25-27 scales to 2^15; here
+    2^16)."""
+    from tpu_ntt.runtime.engine import PolyMultEngine
     p = find_params(1 << 16, 28)
-    assert supported(p)
-    fs = PallasFourStep(p)
+    eng = PolyMultEngine(p.n, p.q)
+    assert eng.kind == "fourstep"
     rows = 4
     a = np.stack([_sparse_poly(rng, p.n, p.q) for _ in range(rows)])
     b = np.stack([_sparse_poly(rng, p.n, p.q) for _ in range(rows)])
-    got = np.asarray(fs.polymul(a.astype(np.int32), b.astype(np.int32)))
+    got = eng.multiply(a, b)
     for i in range(rows):
         want = _sparse_negacyclic(a[i], b[i], p.q)
         np.testing.assert_array_equal(got[i].astype(np.uint64), want)
-    _record(artifact, "fourstep_kernel_vs_sparse_oracle", config="large",
-            n=p.n, q=int(p.q), rows=rows)
 
 
-def test_bigq62_on_device(rng, artifact):
-    """62-bit modulus RNS pipeline (device split -> fused channel kernels
-    -> device Garner CRT) vs the exact sparse oracle."""
+def test_bigq62_on_device(rng):
+    """62-bit modulus RNS pipeline (device split -> stacked channel
+    transforms -> device Garner CRT) vs the exact sparse oracle."""
     from tpu_ntt.bigq import BigQPlan
     p = find_params(4096, 62)
     plan = BigQPlan(p)
@@ -324,15 +268,12 @@ def test_bigq62_on_device(rng, artifact):
     for i in range(rows):
         want = _sparse_negacyclic(a[i], b[i], p.q)
         np.testing.assert_array_equal(got[i], want)
-    _record(artifact, "bigq62_vs_sparse_oracle", config="bigq62", n=p.n,
-            q=int(p.q), rows=rows, channels=len(plan.primes))
 
 
-def test_staged_session_on_device(rng, artifact):
-    """The v1 address-mapped-protocol analog on real hardware: fixed
-    shape, compile-at-construction, donated buffers — bit-exact with the
-    engine, with the dispatch-overhead comparison measured and recorded
-    (VERDICT r4 next #8 'measured dispatch-overhead comparison')."""
+def test_staged_session_on_device(rng):
+    """The v1 address-mapped-protocol analog on the card: fixed shape,
+    compile-at-construction, reusable (not donated) buffers — bit-exact
+    with the engine, and the dispatch-overhead comparison runs."""
     from tpu_ntt.runtime.engine import PolyMultEngine
     from tpu_ntt.runtime.staged import StagedSession
     eng = PolyMultEngine(256, 12289)
@@ -345,15 +286,14 @@ def test_staged_session_on_device(rng, artifact):
         np.testing.assert_array_equal(
             got[i], ref.schoolbook_negacyclic(a[i], b[i], 12289))
     d = sess.measure_overhead(iters=20)
-    _record(artifact, "staged_session_v1_analog", config="sw256",
-            **d)
+    assert d["staged_us"] > 0 and d["engine_us"] > 0
 
 
-def test_bigq64_goldilocks_on_device(rng, artifact):
-    """VERDICT r4 missing-#1 'done' pin: a full 64-bit NTT prime
-    (goldilocks 2^64-2^32+1 — the top of the reference's K<=64 claim,
-    defines.v:42) through the fused big-q pipeline on chip, wide
-    (true-32-bit-halves) plane packing, vs the exact sparse oracle."""
+def test_bigq64_goldilocks_on_device(rng):
+    """A full 64-bit NTT prime (goldilocks 2^64-2^32+1 — the top of the
+    reference's K<=64 claim, defines.v:42) through the big-q pipeline on
+    the card, wide (true-32-bit-halves) plane packing, vs the exact sparse
+    oracle."""
     from tpu_ntt.bigq import BigQPlan
     q = 0xFFFFFFFF00000001
     p = make_params(4096, q)
@@ -373,31 +313,25 @@ def test_bigq64_goldilocks_on_device(rng, artifact):
     for i in range(rows):
         want = _sparse_negacyclic(a[i], b[i], q)
         np.testing.assert_array_equal(got[i], want)
-    _record(artifact, "bigq64_goldilocks_vs_sparse_oracle",
-            config="bigq64", n=p.n, q=int(q), rows=rows,
-            channels=len(plan.primes),
-            backend=type(plan.fused_kernel).__name__
-            if plan.fused_kernel else "xla")
 
 
-def test_engine_selftest_on_device(artifact):
+def test_engine_selftest_on_device():
     """The progressive bring-up ladder (v3/v4 loopback analog) passes on
-    the real chip with the auto (Pallas) backend."""
+    the card with the auto (fused kernel) backend."""
     from tpu_ntt.runtime.engine import PolyMultEngine
     eng = PolyMultEngine(256, 12289)
     rep = eng.self_test()
     assert rep.ok, str(rep)
-    _record(artifact, "engine_selftest", config="sw256", backend=eng.kind)
 
 
-def test_bigq_large_n_on_device(rng, artifact):
-    """BASELINE config 4 evidence: n=2^16 62-bit big-q through the
-    all-Pallas blocked pipeline (split kernel -> per-channel four-step
-    kernels -> Garner kernel) vs the exact sparse oracle on chip."""
-    from tpu_ntt.bigq import BigQPlan, PallasBigQBlocked
+def test_bigq_large_n_on_device(rng):
+    """BASELINE config 4 evidence: n=2^16 62-bit big-q through device
+    split -> per-channel four-step plans -> device Garner, vs the exact
+    sparse oracle on the card."""
+    from tpu_ntt.bigq import BigQPlan
     p = find_params(1 << 16, 62)
     plan = BigQPlan(p)
-    assert isinstance(plan.fused_kernel, PallasBigQBlocked)
+    assert plan.channel_plans and plan.dcrt is not None
     rows = 2
     a = np.stack([_sparse_poly(rng, p.n, p.q) for _ in range(rows)])
     b = np.stack([_sparse_poly(rng, p.n, p.q) for _ in range(rows)])
@@ -405,16 +339,12 @@ def test_bigq_large_n_on_device(rng, artifact):
     for i in range(rows):
         want = _sparse_negacyclic(a[i], b[i], p.q)
         np.testing.assert_array_equal(got[i], want)
-    _record(artifact, "bigq_2^16_blocked_vs_sparse_oracle",
-            config="bigq65536", n=p.n, q=int(p.q), rows=rows,
-            channels=len(plan.primes))
 
 
-def test_sharded_one_chip_mesh_on_device(rng, artifact):
-    """ShardedPlan on a 1-chip mesh (D=1 degenerate four-step: the
-    collective schedule with no peers) matches the single-chip plan
-    bit-exactly on real hardware — pins the sharded code path the CPU
-    suite can only interpret."""
+def test_sharded_one_chip_mesh_on_device(rng):
+    """ShardedPlan on a one-device mesh (D=1 degenerate four-step: the
+    collective schedule with no peers) matches the single-device plan
+    bit-exactly on the card."""
     from tpu_ntt.parallel.sharded import ShardedPlan, make_mesh
     from tpu_ntt.transform import Plan
     p = make_params(4096, 12289)
@@ -426,18 +356,18 @@ def test_sharded_one_chip_mesh_on_device(rng, artifact):
                                     sp.shard_coeffs(b)))
     want = np.asarray(plan.polymul_jit(a, b))
     np.testing.assert_array_equal(got, want)
-    _record(artifact, "sharded_1chip_mesh_vs_plan", n=p.n, q=int(p.q))
 
 
-def test_engine_crossover_dispatch_on_device(rng, artifact):
-    """The engine's backend hand-off points execute correctly on real
-    hardware: flat Pallas at n=8192, four-step past it, big-q RNS for a
-    62-bit modulus — each vs the exact sparse oracle."""
+def test_engine_crossover_dispatch_on_device(rng):
+    """The engine's backend hand-off points execute correctly on the
+    card: the fused kernel at n=1024, the flat XLA plan at n=8192,
+    four-step past it — each vs the exact sparse oracle."""
     from tpu_ntt.runtime.engine import PolyMultEngine
 
     cases = [
-        (8192, find_params(8192, 27).q, "pallas"),
-        (16384, find_params(16384, 27).q, "fourstep-pallas"),
+        (1024, find_params(1024, 27).q, "fused"),
+        (8192, find_params(8192, 27).q, "xla"),
+        (16384, find_params(16384, 27).q, "fourstep"),
     ]
     for n, q, want_kind in cases:
         eng = PolyMultEngine(n, q)
@@ -448,23 +378,19 @@ def test_engine_crossover_dispatch_on_device(rng, artifact):
                                       b[None].astype(np.int64)))[0]
         want = _sparse_negacyclic(a, b, q)
         np.testing.assert_array_equal(got.astype(np.uint64), want)
-        _record(artifact, "engine_crossover", n=n, q=int(q),
-                backend=eng.kind)
 
 
-def test_fused_matvec_on_device(rng, artifact):
-    """The one-kernel module product (ML-DSA pattern) vs the XLA plan
-    on chip, f32-Barrett flavor."""
-    from tpu_ntt.ops.matvec import PallasMatvec
+def test_fused_matvec_on_device(rng):
+    """The fused kernel's module product (ML-DSA pattern) vs the XLA
+    plan on the card, f32-Barrett flavor."""
+    from tpu_ntt.ops.fused import FusedPolymul
     from tpu_ntt.transform import Plan
     p = preset("dilithium256")
-    mv = PallasMatvec(p)
     plan = Plan(p)
+    mv = FusedPolymul(plan)
     r, c = 4, 4
     A = rng.integers(0, p.q, (8, r, c, p.n)).astype(np.int32)
     s = rng.integers(0, p.q, (8, c, p.n)).astype(np.int32)
     got = np.asarray(mv.matvec(A, s))
     want = np.asarray(plan.matvec_jit(A, s))
     np.testing.assert_array_equal(got, want)
-    _record(artifact, "fused_matvec_vs_plan", config="dilithium256",
-            r=r, c=c)

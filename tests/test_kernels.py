@@ -1,166 +1,269 @@
-"""Pallas fused-kernel tests (interpret mode on CPU; real-TPU execution is
-covered by bench.py / the verify drive)."""
+"""Fused-kernel tests (ops/fused.py in interpret mode on CPU; the compiled
+kernel runs in tests/test_gpu_parity.py and chip_smoke.py) and the matmul
+backend (ops/matmul_ntt.py)."""
 
 import numpy as np
 import pytest
 
 from tpu_ntt import ref
-from tpu_ntt.ops.butterfly import PallasPolymul, supported
-from tpu_ntt.params import make_params, preset
+from tpu_ntt.ops.fused import MAX_N, ROWS, FusedPolymul, supported
+from tpu_ntt.params import find_params, make_params, preset
+from tpu_ntt.schemes import IncompletePlan
+from tpu_ntt.transform import Plan
+
+
+def _fused(p):
+    return FusedPolymul(Plan(p), interpret=True)
+
+
+def _kyber():
+    return IncompletePlan(256, 3329, levels=1)
+
+
+def _matvec_oracle(A, s, q):
+    r, c = A.shape[-3], A.shape[-2]
+    out = np.zeros(A.shape[:-3] + (r, A.shape[-1]), dtype=np.int64)
+    for idx in np.ndindex(*A.shape[:-3]):
+        for i in range(r):
+            for j in range(c):
+                out[idx + (i,)] += ref.schoolbook_negacyclic(
+                    A[idx + (i, j)], s[idx + (j,)], q)
+    return out % q
 
 
 @pytest.mark.parametrize("name", ["sw256", "hw256", "kyber128",
                                   "dilithium256"])
 def test_pallas_polymul_bit_exact(rng, name):
     p = preset(name)
-    pk = PallasPolymul(p, tile=8, interpret=True)
+    pk = _fused(p)
     a = rng.integers(0, p.q, (10, p.n)).astype(np.int32)
     b = rng.integers(0, p.q, (10, p.n)).astype(np.int32)
     c = np.asarray(pk.polymul(a, b))
-    for i in range(10):
-        np.testing.assert_array_equal(
-            c[i], ref.schoolbook_negacyclic(a[i], b[i], p.q))
+    np.testing.assert_array_equal(c, ref.schoolbook_rows(a, b, p.q))
     assert c.min() >= 0 and c.max() < p.q
 
 
 def test_pallas_matches_xla_plan(rng):
-    from tpu_ntt.transform import Plan
     p = preset("sw256")
-    pk = PallasPolymul(p, tile=8, interpret=True)
-    plan = Plan(p)
-    a = rng.integers(0, p.q, (8, p.n)).astype(np.int32)
-    b = rng.integers(0, p.q, (8, p.n)).astype(np.int32)
-    np.testing.assert_array_equal(np.asarray(pk.polymul(a, b)),
-                                  np.asarray(plan.polymul_jit(a, b)))
+    a = rng.integers(0, p.q, (ROWS, p.n)).astype(np.int32)
+    b = rng.integers(0, p.q, (ROWS, p.n)).astype(np.int32)
+    np.testing.assert_array_equal(np.asarray(_fused(p).polymul(a, b)),
+                                  np.asarray(Plan(p).polymul_jit(a, b)))
 
 
-def test_pallas_batch_padding(rng):
-    """Batch not divisible by the tile is padded internally."""
+@pytest.mark.parametrize("batch", [1, 5, ROWS + 3])
+def test_pallas_batch_padding(rng, batch):
+    """Batches that are not a multiple of ROWS are padded internally;
+    leading axes beyond the batch are kept."""
     p = preset("sw256")
-    pk = PallasPolymul(p, tile=8, interpret=True)
-    a = rng.integers(0, p.q, (5, p.n)).astype(np.int32)   # 5 % 8 != 0
-    b = rng.integers(0, p.q, (5, p.n)).astype(np.int32)
+    pk = _fused(p)
+    a = rng.integers(0, p.q, (batch, p.n)).astype(np.int32)
+    b = rng.integers(0, p.q, (batch, p.n)).astype(np.int32)
     c = np.asarray(pk.polymul(a, b))
-    assert c.shape == (5, p.n)
-    np.testing.assert_array_equal(
-        c[4], ref.schoolbook_negacyclic(a[4], b[4], p.q))
+    assert c.shape == (batch, p.n)
+    np.testing.assert_array_equal(c, ref.schoolbook_rows(a, b, p.q))
+    c3 = np.asarray(pk.polymul(a.reshape(batch, 1, p.n),
+                               b.reshape(batch, 1, p.n)))
+    np.testing.assert_array_equal(c3.reshape(batch, p.n), c)
 
 
 def test_pallas_extreme_inputs():
-    """All-(q-1) inputs exercise the lazy-range bounds."""
+    """All-(q-1) inputs at the range edge."""
     p = preset("sw256")
-    pk = PallasPolymul(p, tile=8, interpret=True)
-    a = np.full((8, p.n), p.q - 1, dtype=np.int32)
-    c = np.asarray(pk.polymul(a, a))
-    want = ref.schoolbook_negacyclic(a[0], a[0], p.q)
-    np.testing.assert_array_equal(c[0], want)
+    a = np.full((4, p.n), p.q - 1, dtype=np.int32)
+    c = np.asarray(_fused(p).polymul(a, a))
+    np.testing.assert_array_equal(
+        c[0], ref.schoolbook_negacyclic(a[0], a[0], p.q))
 
 
 def test_pallas_unsupported_q():
-    """Dilithium's 23-bit q takes the float-Barrett kernel, q >= 2^23 the
-    Montgomery kernel; q >= 2^29 has no in-kernel strategy (that's the
-    RNS/bigq path)."""
-    assert supported(preset("dilithium256"))
-    assert PallasPolymul(preset("dilithium256")).flavor == "f32"
-    from tpu_ntt.params import find_params as _fp
-    assert PallasPolymul(_fp(256, 28)).flavor == "mont"
-    from tpu_ntt.params import find_params
-    big = find_params(256, 30)
-    assert big.q >= (1 << 29)
-    assert not supported(big)
+    """The envelope: power-of-two 16 <= n <= MAX_N, odd q < 2^29 with the
+    needed roots; anything else is refused, and without a GPU the kernel
+    runs only in interpret mode."""
+    assert supported(256, preset("dilithium256").q)
+    assert supported(256, 3329, levels=1)
+    assert not supported(256, 3329)                  # no 512th root
+    assert not supported(256, find_params(256, 30).q)   # q >= 2^29
+    assert not supported(2 * MAX_N, 12289)
+    assert not supported(8, 17)
+    assert not supported(256, 7681, negacyclic=False, levels=1)
     with pytest.raises(ValueError):
-        PallasPolymul(big)
+        _fused(make_params(2 * MAX_N, 12289))
+    with pytest.raises(RuntimeError, match="GPU"):
+        FusedPolymul(Plan(preset("sw256")))
 
 
 def test_pallas_mont_extreme_inputs():
     """All-(q-1) inputs at the Montgomery bound q just under 2^29."""
-    from tpu_ntt.params import find_params
     p = find_params(256, 29)
     assert (1 << 28) < p.q < (1 << 29)
-    pk = PallasPolymul(p, tile=8, interpret=True)
-    a = np.full((8, p.n), p.q - 1, dtype=np.int32)
-    c = np.asarray(pk.polymul(a, a))
+    a = np.full((2, p.n), p.q - 1, dtype=np.int32)
+    c = np.asarray(_fused(p).polymul(a, a))
     want = ref.schoolbook_negacyclic(
         a[0].astype(object), a[0].astype(object), p.q)
     np.testing.assert_array_equal(c[0].astype(object), want)
 
 
 def test_pallas_mont_matches_xla_plan(rng):
-    from tpu_ntt.transform import Plan
-    p = preset("dilithium256")
-    pk = PallasPolymul(p, tile=8, interpret=True)
-    plan = Plan(p)
-    a = rng.integers(0, p.q, (8, p.n)).astype(np.int32)
-    b = rng.integers(0, p.q, (8, p.n)).astype(np.int32)
-    np.testing.assert_array_equal(np.asarray(pk.polymul(a, b)),
-                                  np.asarray(plan.polymul_jit(a, b)))
+    p = find_params(256, 28)
+    a = rng.integers(0, p.q, (4, p.n)).astype(np.int32)
+    b = rng.integers(0, p.q, (4, p.n)).astype(np.int32)
+    np.testing.assert_array_equal(np.asarray(_fused(p).polymul(a, b)),
+                                  np.asarray(Plan(p).polymul_jit(a, b)))
 
 
-def test_pallas_other_n(rng):
-    p = make_params(512, 12289)
-    pk = PallasPolymul(p, tile=8, interpret=True)
-    a = rng.integers(0, p.q, (8, 512)).astype(np.int32)
-    b = rng.integers(0, p.q, (8, 512)).astype(np.int32)
-    c = np.asarray(pk.polymul(a, b))
-    np.testing.assert_array_equal(
-        c[0], ref.schoolbook_negacyclic(a[0], b[0], p.q))
+@pytest.mark.parametrize("n", [16, 64, 512, MAX_N])
+def test_pallas_other_n(rng, n):
+    p = make_params(n, 12289)
+    a = rng.integers(0, p.q, (2, n)).astype(np.int32)
+    b = rng.integers(0, p.q, (2, n)).astype(np.int32)
+    np.testing.assert_array_equal(np.asarray(_fused(p).polymul(a, b)),
+                                  ref.schoolbook_rows(a, b, p.q))
 
 
-@pytest.mark.parametrize("name", ["sw256", "dilithium256"])
-def test_pallas_standalone_transforms_match_plan(rng, name):
-    """fwd-only / inv-only kernels are drop-in twins of Plan.forward and
-    Plan.inverse (both arithmetic flavors)."""
-    from tpu_ntt.transform import Plan
-    p = preset(name)
-    pk = PallasPolymul(p, tile=8, interpret=True)
-    plan = Plan(p)
-    x = rng.integers(0, p.q, (8, p.n)).astype(np.int32)
-    np.testing.assert_array_equal(np.asarray(pk.forward(x)),
-                                  np.asarray(plan.forward_jit(x)))
+@pytest.mark.parametrize("p", [preset("sw256"), preset("dilithium256"),
+                               find_params(256, 28)],
+                         ids=["shoup", "f32", "mont"])
+def test_pallas_standalone_transforms_match_plan(rng, p):
+    """The forward-only and inverse-only kernels are drop-in twins of
+    Plan.forward and Plan.inverse in every arithmetic flavor."""
+    pk, plan = _fused(p), Plan(p)
+    x = rng.integers(0, p.q, (3, p.n)).astype(np.int32)
     f = np.asarray(plan.forward_jit(x))
+    np.testing.assert_array_equal(np.asarray(pk.forward(x)), f)
     np.testing.assert_array_equal(np.asarray(pk.inverse(f)),
                                   np.asarray(plan.inverse_jit(f)))
 
 
+def test_pallas_cyclic_ring(rng):
+    """x^n - 1 (psi=0 tables) — the FPGA hardware-flow semantics."""
+    p = make_params(256, 7681, negacyclic=False)
+    a = rng.integers(0, p.q, (3, p.n)).astype(np.int32)
+    b = rng.integers(0, p.q, (3, p.n)).astype(np.int32)
+    np.testing.assert_array_equal(
+        np.asarray(_fused(p).polymul(a, b)),
+        ref.schoolbook_rows(a, b, p.q, negacyclic=False))
+
+
 # ---------------------------------------------------------------------------
-# MXU matmul backend
+# incomplete NTT (Kyber's ring, levels=1)
 # ---------------------------------------------------------------------------
 
-def test_mxu_polymul_bit_exact(rng):
+def test_pallas_incomplete_kyber_bit_exact(rng):
+    pk = FusedPolymul(_kyber(), interpret=True)
+    a = rng.integers(0, 3329, (6, 256)).astype(np.int32)
+    b = rng.integers(0, 3329, (6, 256)).astype(np.int32)
+    np.testing.assert_array_equal(np.asarray(pk.polymul(a, b)),
+                                  ref.schoolbook_rows(a, b, 3329))
+
+
+def test_pallas_incomplete_matches_incomplete_plan(rng):
+    """polymul and the two-spectrum forward/inverse equal the XLA
+    IncompletePlan's."""
+    plan = _kyber()
+    pk = FusedPolymul(plan, interpret=True)
+    a = rng.integers(0, 3329, (3, 256)).astype(np.int32)
+    b = rng.integers(0, 3329, (3, 256)).astype(np.int32)
+    np.testing.assert_array_equal(np.asarray(pk.polymul(a, b)),
+                                  np.asarray(plan.polymul(a, b)))
+    f, fp = pk.forward(a), plan.forward(a)
+    assert len(f) == len(fp) == 2
+    for x, y in zip(f, fp):
+        np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
+    np.testing.assert_array_equal(np.asarray(pk.inverse(f)),
+                                  np.asarray(plan.inverse(fp)))
+
+
+def test_pallas_incomplete_extreme_inputs():
+    pk = FusedPolymul(_kyber(), interpret=True)
+    a = np.full((2, 256), 3328, dtype=np.int32)
+    np.testing.assert_array_equal(np.asarray(pk.polymul(a, a))[0],
+                                  ref.schoolbook_negacyclic(a[0], a[0], 3329))
+
+
+def test_pallas_incomplete_rejects_big_q():
+    """levels=1 still needs the int32 arithmetic's q < 2^29, and only
+    levels 0 and 1 are fused."""
+    assert not supported(256, (1 << 29) + 257, levels=1)
+    with pytest.raises(ValueError):
+        FusedPolymul(IncompletePlan(256, 2689), interpret=True)                     # levels=2
+
+
+def test_pallas_incomplete_matvec_matches_plan(rng):
+    plan = _kyber()
+    pk = FusedPolymul(plan, interpret=True)
+    A = rng.integers(0, 3329, (2, 3, 3, 256)).astype(np.int32)
+    s = rng.integers(0, 3329, (2, 3, 256)).astype(np.int32)
+    np.testing.assert_array_equal(np.asarray(pk.matvec(A, s)),
+                                  np.asarray(plan.matvec(A, s)))
+
+
+def test_pallas_incomplete_matvec_extreme():
+    pk = FusedPolymul(_kyber(), interpret=True)
+    A = np.full((1, 2, 2, 256), 3328, dtype=np.int32)
+    s = np.full((1, 2, 256), 3328, dtype=np.int32)
+    np.testing.assert_array_equal(np.asarray(pk.matvec(A, s)),
+                                  _matvec_oracle(A, s, 3329))
+
+
+@pytest.mark.parametrize("p", [preset("sw256"), preset("dilithium256"),
+                               find_params(256, 28)],
+                         ids=["shoup", "f32", "mont"])
+def test_pallas_full_matvec_matches_plan(rng, p):
+    """The module product (kernel transforms around the XLA
+    multiply-accumulate) equals Plan.matvec in every flavor."""
+    pk = _fused(p)
+    A = rng.integers(0, p.q, (2, 2, 3, p.n)).astype(np.int32)
+    s = rng.integers(0, p.q, (2, 3, p.n)).astype(np.int32)
+    A[0, 0, 0] = p.q - 1
+    s[0, 0] = p.q - 1
+    np.testing.assert_array_equal(np.asarray(pk.matvec(A, s)),
+                                  np.asarray(Plan(p).matvec_jit(A, s)))
+
+
+def test_pallas_matvec_shape_mismatch():
+    pk = _fused(preset("sw256"))
+    with pytest.raises(ValueError, match="matvec shape"):
+        pk.matvec(np.zeros((1, 2, 3, 256), np.int32),
+                  np.zeros((1, 2, 256), np.int32))
+
+
+# ---------------------------------------------------------------------------
+# matmul backend
+# ---------------------------------------------------------------------------
+
+def test_matmul_polymul_bit_exact(rng):
     from tpu_ntt.ops.matmul_ntt import MatmulNTT
     p = preset("sw256")
     m = MatmulNTT(p)
     a = rng.integers(0, p.q, (6, p.n)).astype(np.int32)
     b = rng.integers(0, p.q, (6, p.n)).astype(np.int32)
     c = np.asarray(m.polymul_jit(a, b))
-    for i in range(6):
-        np.testing.assert_array_equal(
-            c[i], ref.schoolbook_negacyclic(a[i], b[i], p.q))
+    np.testing.assert_array_equal(c, ref.schoolbook_rows(a, b, p.q))
 
 
-def test_mxu_exactness_edge(rng):
+def test_matmul_exactness_edge():
     """n=1024 with all-(q-1) inputs sits at the f32-accumulation bound
     (127²·1024 < 2^24) — must still be exact."""
     from tpu_ntt.ops.matmul_ntt import MatmulNTT
     p = make_params(1024, 12289)
-    m = MatmulNTT(p)
     a = np.full((2, 1024), p.q - 1, dtype=np.int32)
-    c = np.asarray(m.polymul_jit(a, a))
+    c = np.asarray(MatmulNTT(p).polymul_jit(a, a))
     np.testing.assert_array_equal(
         c[0], ref.schoolbook_negacyclic(a[0], a[0], p.q))
 
 
-def test_mxu_unsupported():
-    from tpu_ntt.ops.matmul_ntt import MatmulNTT, supported as mxu_supported
-    assert not mxu_supported(preset("dilithium256"))     # q too big
-    assert not mxu_supported(make_params(2048, 12289))   # n too big
+def test_matmul_unsupported():
+    from tpu_ntt.ops.matmul_ntt import MatmulNTT
+    from tpu_ntt.ops.matmul_ntt import supported as mm_supported
+    assert not mm_supported(preset("dilithium256"))     # q too big
+    assert not mm_supported(make_params(2048, 12289))   # n too big
     with pytest.raises(ValueError):
         MatmulNTT(preset("dilithium256"))
 
 
-def test_mxu_matches_xla_plan(rng):
+def test_matmul_matches_xla_plan(rng):
     from tpu_ntt.ops.matmul_ntt import MatmulNTT
-    from tpu_ntt.transform import Plan
     p = preset("hw256")
     a = rng.integers(0, p.q, (3, p.n)).astype(np.int32)
     b = rng.integers(0, p.q, (3, p.n)).astype(np.int32)
@@ -169,259 +272,11 @@ def test_mxu_matches_xla_plan(rng):
         np.asarray(Plan(p).polymul_jit(a, b)))
 
 
-# ---------------------------------------------------------------------------
-# incomplete-NTT fused kernel (Kyber)
-# ---------------------------------------------------------------------------
-
-def test_pallas_incomplete_kyber_bit_exact(rng):
-    from tpu_ntt.ops.butterfly import PallasIncompletePolymul
-    pk = PallasIncompletePolymul(256, 3329, tile=8, interpret=True)
-    a = rng.integers(0, 3329, (9, 256)).astype(np.int32)   # odd batch
-    b = rng.integers(0, 3329, (9, 256)).astype(np.int32)
-    c = np.asarray(pk.polymul(a, b))
-    for i in range(9):
-        np.testing.assert_array_equal(
-            c[i], ref.schoolbook_negacyclic(a[i], b[i], 3329))
-    assert c.min() >= 0 and c.max() < 3329
-
-
-def test_pallas_incomplete_matches_incomplete_plan(rng):
-    from tpu_ntt.ops.butterfly import PallasIncompletePolymul
-    from tpu_ntt.schemes import kyber_plan
-    pk = PallasIncompletePolymul(256, 3329, tile=8, interpret=True)
-    kp = kyber_plan()
-    a = rng.integers(0, 3329, (8, 256)).astype(np.int32)
-    b = rng.integers(0, 3329, (8, 256)).astype(np.int32)
-    np.testing.assert_array_equal(np.asarray(pk.polymul(a, b)),
-                                  np.asarray(kp.polymul_jit(a, b)))
-
-
-def test_pallas_incomplete_extreme_inputs():
-    from tpu_ntt.ops.butterfly import PallasIncompletePolymul
-    pk = PallasIncompletePolymul(256, 3329, tile=8, interpret=True)
-    a = np.full((8, 256), 3328, dtype=np.int32)
-    c = np.asarray(pk.polymul(a, a))
-    np.testing.assert_array_equal(
-        c[0], ref.schoolbook_negacyclic(a[0], a[0], 3329))
-
-
-def test_pallas_incomplete_rejects_big_q():
-    from tpu_ntt.ops.butterfly import PallasIncompletePolymul
-    with pytest.raises(ValueError):
-        PallasIncompletePolymul(256, 8380417)
-
-
-@pytest.mark.parametrize("name", ["sw256", "dilithium256"])
-def test_pallas_split_pipeline_matches_fused(rng, name):
-    """forward -> pointwise -> inverse through the Pallas plan equals the
-    fused polymul kernel (the Ring transform-domain API path)."""
-    p = preset(name)
-    pk = PallasPolymul(p, tile=8, interpret=True)
-    a = rng.integers(0, p.q, (8, p.n)).astype(np.int32)
-    b = rng.integers(0, p.q, (8, p.n)).astype(np.int32)
-    split = np.asarray(pk.inverse(pk.pointwise(pk.forward(a),
-                                               pk.forward(b))))
-    np.testing.assert_array_equal(split, np.asarray(pk.polymul(a, b)))
-
-
-def test_pallas_cyclic_ring(rng):
-    """psi=0 (cyclic, x^n - 1) through the fused kernel — the hardware
-    flow's ring (PolyMult.v computes the cyclic product)."""
-    p = make_params(256, 7681, negacyclic=False)
-    assert p.psi == 0
-    pk = PallasPolymul(p, tile=8, interpret=True)
-    a = rng.integers(0, p.q, (6, 256)).astype(np.int32)
-    b = rng.integers(0, p.q, (6, 256)).astype(np.int32)
-    c = np.asarray(pk.polymul(a, b))
-    for i in range(6):
-        np.testing.assert_array_equal(
-            c[i], ref.schoolbook_cyclic(a[i], b[i], p.q))
-
-
-@pytest.mark.parametrize("name", ["sw256", "dilithium256"])
-def test_pallas_cm_layout_bit_exact(rng, name):
-    """Coefficient-major (sublane-roll) layout: both arithmetic flavors
-    (lazy Shoup q<2^14, digit-serial Montgomery q<2^29) match the
-    schoolbook oracle through the (batch, n) API."""
-    p = preset(name)
-    pk = PallasPolymul(p, tile=8, interpret=True, layout="cm")
-    a = rng.integers(0, p.q, (5, p.n)).astype(np.int32)
-    b = rng.integers(0, p.q, (5, p.n)).astype(np.int32)
-    c = np.asarray(pk.polymul(a, b))
-    for i in range(5):
-        np.testing.assert_array_equal(
-            c[i], ref.schoolbook_negacyclic(a[i], b[i], p.q))
-    assert c.min() >= 0 and c.max() < p.q
-
-
-def test_pallas_cm_native_entry_and_transforms(rng):
-    """polymul_cm takes/returns (n, batch); forward/inverse in cm layout
-    match the default-layout kernel exactly."""
-    p = preset("sw256")
-    rows = PallasPolymul(p, tile=8, interpret=True, layout="rows")
-    cm = PallasPolymul(p, tile=8, interpret=True, layout="cm")
-    a = rng.integers(0, p.q, (5, p.n)).astype(np.int32)
-    b = rng.integers(0, p.q, (5, p.n)).astype(np.int32)
-    c_cm = np.asarray(cm.polymul_cm(a.T, b.T)).T
-    np.testing.assert_array_equal(c_cm, np.asarray(rows.polymul(a, b)))
-    np.testing.assert_array_equal(np.asarray(cm.forward(a)),
-                                  np.asarray(rows.forward(a)))
-    fa, fb = rows.forward(a), rows.forward(b)
-    np.testing.assert_array_equal(
-        np.asarray(cm.inverse(cm.pointwise(fa, fb))),
-        np.asarray(rows.inverse(rows.pointwise(fa, fb))))
-
-
-def test_pallas_cm_rejects_bad_layout():
-    p = preset("sw256")
-    with pytest.raises(ValueError):
-        PallasPolymul(p, layout="columns")
-    rows = PallasPolymul(p, tile=8, interpret=True, layout="rows")
-    with pytest.raises(ValueError):
-        rows.polymul_cm(np.zeros((256, 8), np.int32),
-                        np.zeros((256, 8), np.int32))
-
-
-def test_pallas_incomplete_cm_matches_rows(rng):
-    """Incomplete (Kyber) kernel: cm and rows layouts agree bit-exactly,
-    and the native (n, batch) entry matches."""
-    from tpu_ntt.ops.butterfly import PallasIncompletePolymul
-    rows = PallasIncompletePolymul(256, 3329, tile=8, interpret=True,
-                                   layout="rows")
-    cm = PallasIncompletePolymul(256, 3329, tile=8, interpret=True,
-                                 layout="cm")
-    a = rng.integers(0, 3329, (5, 256)).astype(np.int32)
-    b = rng.integers(0, 3329, (5, 256)).astype(np.int32)
-    want = np.asarray(rows.polymul(a, b))
-    np.testing.assert_array_equal(np.asarray(cm.polymul(a, b)), want)
-    np.testing.assert_array_equal(np.asarray(cm.polymul_cm(a.T, b.T)).T,
-                                  want)
-
-
-def test_pallas_f32_boundary_extreme_inputs():
-    """All-(q-1) inputs at the float-Barrett bound: the largest
-    NTT-friendly prime below 2^23 stresses the ±3 quotient-estimate
-    window and the [0, 2q) < 2^24 f32-exactness envelope."""
-    from tpu_ntt.params import find_ntt_prime
-    q = find_ntt_prime(23, 256)
-    assert (1 << 22) < q < (1 << 23)
-    p = make_params(256, q)
-    for layout in ("rows", "cm"):
-        pk = PallasPolymul(p, tile=8, interpret=True, layout=layout)
-        assert pk.flavor == "f32"
-        a = np.full((8, p.n), p.q - 1, dtype=np.int32)
-        c = np.asarray(pk.polymul(a, a))
-        want = ref.schoolbook_negacyclic(
-            a[0].astype(object), a[0].astype(object), p.q)
-        np.testing.assert_array_equal(c[0].astype(object), want)
-
-
-def test_pallas_f32_flat_unpacked(rng):
-    """The non-packed (mask/select) f32 kernel path is exact too."""
-    p = preset("dilithium256")
-    pk = PallasPolymul(p, tile=8, interpret=True, packed=False)
-    a = rng.integers(0, p.q, (5, p.n)).astype(np.int32)
-    b = rng.integers(0, p.q, (5, p.n)).astype(np.int32)
-    c = np.asarray(pk.polymul(a, b))
-    for i in range(5):
-        np.testing.assert_array_equal(
-            c[i], ref.schoolbook_negacyclic(a[i], b[i], p.q))
-
-
-def test_pallas_incomplete_matvec_matches_plan(rng):
-    """Fused matvec kernel == IncompletePlan.matvec (ML-KEM k=3 and a
-    rectangular 2x4 module at the accumulator bound)."""
-    from tpu_ntt.ops.butterfly import PallasIncompletePolymul
-    from tpu_ntt.schemes import IncompletePlan
-    pk = PallasIncompletePolymul(256, 3329, tile=8, interpret=True)
-    ip = IncompletePlan(256, 3329)
-    for r, c in ((3, 3), (2, 4)):
-        A = rng.integers(0, 3329, (2, r, c, 256)).astype(np.int32)
-        s = rng.integers(0, 3329, (2, c, 256)).astype(np.int32)
-        got = np.asarray(pk.matvec(A, s))
-        want = np.asarray(ip.matvec_jit(A, s))
-        np.testing.assert_array_equal(got, want, err_msg=f"r={r} c={c}")
-        assert got.min() >= 0 and got.max() < 3329
-
-
-def test_pallas_incomplete_matvec_extreme(rng):
-    """All-(q-1) module entries stress the spectral accumulator bound."""
-    from tpu_ntt.ops.butterfly import PallasIncompletePolymul
-    from tpu_ntt.schemes import IncompletePlan
-    pk = PallasIncompletePolymul(256, 3329, tile=8, interpret=True)
-    ip = IncompletePlan(256, 3329)
-    A = np.full((1, 4, 4, 256), 3328, dtype=np.int32)
-    s = np.full((1, 4, 256), 3328, dtype=np.int32)
-    np.testing.assert_array_equal(np.asarray(pk.matvec(A, s)),
-                                  np.asarray(ip.matvec_jit(A, s)))
-
-
-@pytest.mark.parametrize("name", ["sw256", "dilithium256"])
-def test_pallas_full_matvec_matches_plan(rng, name):
-    """PallasPolymul.matvec (fused single-kernel module product) ==
-    Plan.matvec for both Shoup and f32-Barrett flavors."""
-    from tpu_ntt.transform import Plan
-    p = preset(name)
-    pk = PallasPolymul(p, tile=8, interpret=True)
-    plan = Plan(p)
-    A = rng.integers(0, p.q, (2, 2, 3, p.n)).astype(np.int32)
-    s = rng.integers(0, p.q, (2, 3, p.n)).astype(np.int32)
-    np.testing.assert_array_equal(np.asarray(pk.matvec(A, s)),
-                                  np.asarray(plan.matvec_jit(A, s)))
-
-
-def test_pallas_fused_matvec_all_flavors(rng):
-    """ops/matvec.PallasMatvec (one kernel: transforms + spectral
-    accumulate + shared inverses) == Plan.matvec across all three
-    arithmetic flavors, plus domain-extreme inputs and the unary-kernel
-    fallback path."""
-    from tpu_ntt.ops.matvec import PallasMatvec
-    from tpu_ntt.params import find_params
-    from tpu_ntt.transform import Plan
-
-    for p in (preset("sw256"), preset("dilithium256"),
-              find_params(256, 28)):
-        mv = PallasMatvec(p, interpret=True)
-        plan = Plan(p)
-        A = rng.integers(0, p.q, (1, 2, 2, p.n)).astype(np.int32)
-        s = rng.integers(0, p.q, (1, 2, p.n)).astype(np.int32)
-        got = np.asarray(mv.matvec(A, s))
-        np.testing.assert_array_equal(
-            got, np.asarray(plan.matvec_jit(A, s)),
-            err_msg=f"flavor {mv.flavor}")
-        assert got.min() >= 0 and got.max() < p.q
-        # extremes stress the spectral accumulator fold chain
-        Ax = np.full((1, 2, 2, p.n), p.q - 1, dtype=np.int32)
-        sx = np.full((1, 2, p.n), p.q - 1, dtype=np.int32)
-        np.testing.assert_array_equal(
-            np.asarray(mv.matvec(Ax, sx)),
-            np.asarray(plan.matvec_jit(Ax, sx)),
-            err_msg=f"flavor {mv.flavor} extremes")
-
-    # shapes past the fused envelope fall back to the unary composition
-    p = preset("sw256")
-    pk = PallasPolymul(p, tile=8, interpret=True)
-    assert not pk._fused_matvec.supported_shape(64, 64)
-    plan = Plan(p)
-    A = rng.integers(0, p.q, (1, 1, 1, p.n)).astype(np.int32)
-    s = rng.integers(0, p.q, (1, 1, p.n)).astype(np.int32)
-    np.testing.assert_array_equal(np.asarray(pk.matvec(A, s)),
-                                  np.asarray(plan.matvec_jit(A, s)))
-
-
-def test_kernels_declare_parallel_grids():
-    """Every independent-grid pallas_call declares its grid dimensions
-    parallel — Mosaic treats undeclared grids as sequential and will not
-    pipeline across blocks (measured +14% on the f32 four-step when the
-    flag was first added, r5).  Source-level pin so a refactor cannot
-    silently drop it."""
-    import pathlib
-    import re
-    ops = pathlib.Path(__file__).resolve().parents[1] / "tpu_ntt" / "ops"
-    for name in ("butterfly.py", "fourstep.py", "bigq_kernel.py",
-                 "matvec.py"):
-        src = (ops / name).read_text()
-        calls = len(re.findall(r"pl\.pallas_call\(", src))
-        flags = src.count("dimension_semantics")
-        assert flags >= calls - (1 if name == "bigq_fourstep.py" else 0), \
-            (name, calls, flags)
+def test_matmul_engine_backend(rng):
+    """backend='matmul' reaches MatmulNTT through the engine and Ring."""
+    from tpu_ntt.ring import Ring
+    R = Ring(256, 12289, backend="matmul")
+    assert R._engine.kind == "matmul"
+    a, b = R.random((2, 256), rng), R.random((2, 256), rng)
+    np.testing.assert_array_equal(R.mul(a, b),
+                                  ref.schoolbook_rows(a, b, 12289))

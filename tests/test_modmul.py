@@ -1,5 +1,5 @@
 """Modular-arithmetic strategy tests (int32-lane exactness proofs by
-exhaustive-ish sampling + adversarial corners) — the TPU twin of the
+exhaustive-ish sampling + adversarial corners) — the vectorised twin of the
 reference's range assertions (ntt_red.c:42,79) and word-level reduction
 verification (ModRed_sub.v behaviour)."""
 

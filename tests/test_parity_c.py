@@ -25,7 +25,7 @@ SW_DIR = ("NTT_Software/NTT_Software_Evaluations/NTT-256")
 def build_c_oracle(reference_dir):
     """Compile the reference NTT-RED and NTT libraries to one .so.
 
-    Shared with tests/test_tpu_parity.py (the on-device parity run uses the
+    Shared with tests/test_gpu_parity.py (the on-device parity run uses the
     same compiled oracle).  Calls pytest.skip when compilation is impossible.
     """
     cc = shutil.which("cc") or shutil.which("gcc")

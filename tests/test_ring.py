@@ -165,8 +165,8 @@ def test_mesh_dispatch(rng):
 
 def test_cyclic_mesh_and_fourstep_paths(rng):
     """Cyclic rings are exact through the OTHER engine backends too:
-    the sharded four-step (mesh path) and the fused four-step kernel
-    (interpret) — psi=0 tables everywhere."""
+    the sharded four-step over 8 devices and the four-step plan on a
+    one-device mesh — psi=0 tables everywhere."""
     if len(jax.devices()) >= 8:
         from tpu_ntt.parallel.sharded import make_mesh
         R = Ring(1024, 12289, negacyclic=False, mesh=make_mesh(8))
@@ -176,12 +176,12 @@ def test_cyclic_mesh_and_fourstep_paths(rng):
         for i in range(2):
             np.testing.assert_array_equal(
                 c[i], ref.schoolbook_cyclic(a[i], b[i], 12289))
-    from tpu_ntt.ops.fourstep import PallasFourStep, supported
+    from tpu_ntt.parallel.sharded import ShardedPlan, make_mesh
     p = make_params(1 << 12, 12289, negacyclic=False)
-    assert supported(p)
-    fs = PallasFourStep(p, interpret=True)
+    fs = ShardedPlan(p, make_mesh(1))
     a1 = rng.integers(0, p.q, (1, p.n)).astype(np.int32)
     b1 = rng.integers(0, p.q, (1, p.n)).astype(np.int32)
+    got = fs.unshard(fs.polymul_jit(fs.shard_coeffs(a1),
+                                    fs.shard_coeffs(b1)))
     np.testing.assert_array_equal(
-        np.asarray(fs.polymul(a1, b1))[0],
-        ref.schoolbook_cyclic(a1[0], b1[0], p.q))
+        got[0], ref.schoolbook_cyclic(a1[0], b1[0], p.q))

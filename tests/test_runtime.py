@@ -34,31 +34,33 @@ def test_engine_dispatch_and_multiply(rng, n, q, kind):
 
 
 def test_engine_incomplete_pallas_forced(rng):
-    """backend='pallas' reaches the fused incomplete kernel even on CPU
-    (interpret mode) — the engine-level twin of the schemes dispatch;
-    auto-on-TPU is pinned by test_tpu_parity.py."""
-    eng = PolyMultEngine(n=256, q=3329, backend="pallas")
-    assert eng.kind == "incomplete-pallas"
+    """backend='pallas' demands the fused kernel: on the CPU it raises
+    instead of running the interpreter; the kernel over the engine's own
+    incomplete plan (interpret mode) is exact."""
+    from tpu_ntt.ops.fused import FusedPolymul
+    with pytest.raises(RuntimeError, match="GPU"):
+        PolyMultEngine(n=256, q=3329, backend="pallas")
+    eng = PolyMultEngine(n=256, q=3329, backend="xla")
+    fast = FusedPolymul(eng.plan, interpret=True)
     a = rng.integers(0, 3329, (2, 256))
     b = rng.integers(0, 3329, (2, 256))
-    c = eng.multiply(a, b)
+    c = np.asarray(fast.polymul(a, b))
     np.testing.assert_array_equal(
         c[0], ref.schoolbook_negacyclic(a[0], b[0], 3329))
 
 
-def test_engine_explicit_pallas_outside_envelope_raises():
-    """An EXPLICIT backend='pallas' outside the fused incomplete
-    kernel's structural envelope is a contract violation and must raise,
-    mirroring the xla posture — not silently degrade to the XLA
-    IncompletePlan (ADVICE r4 #1)."""
-    # (q-1) % n != 0: no size-n/2 incomplete sub-transform exists
+@pytest.mark.parametrize("n,q", [
+    (256, 3331),                  # (q-1) % n != 0: no incomplete transform
+    (2048, 12289),                # past the kernel's MAX_N
+    (256, (1 << 61) - 1),         # big q: RNS channels, no kernel
+])
+def test_engine_explicit_pallas_outside_envelope_raises(n, q):
+    """An EXPLICIT backend='pallas' outside the fused kernel's envelope
+    is a contract violation and raises even on a GPU, mirroring the xla
+    posture — not silently degrade to an XLA plan."""
+    from tpu_ntt.dispatch import select_plan
     with pytest.raises(ValueError, match="backend='pallas'"):
-        PolyMultEngine(n=256, q=3331, backend="pallas")
-    # q ≡ 1 (mod n) but q >= 2^14: outside the lazy-Shoup width bound
-    # (16641 = 65·256 + 1, 16640 % 512 != 0 so this is the incomplete
-    # branch, and 16641 >= 2^14 fails the envelope)
-    with pytest.raises(ValueError, match="backend='pallas'"):
-        PolyMultEngine(n=256, q=16641, backend="pallas")
+        select_plan(n, q, backend="pallas", platform="gpu")
 
 
 def test_engine_dp_sp_mesh(rng):
@@ -191,10 +193,19 @@ def test_time_fn():
 
 def test_roofline_report():
     p = preset("sw256")
-    r = polymul_roofline(p, batch=8192, measured_s=100e-6)
+    r = polymul_roofline(p, batch=8192, measured_s=100e-6,
+                         device_kind="NVIDIA H100 80GB HBM3")
     assert r.butterflies == 3 * 8192 * 128 * 8
+    assert r.hbm_ceiling == 3.35e12
     assert 0 < r.roofline_fraction < 10
     assert "roofline" in str(r)
+
+
+def test_roofline_unknown_device_raises():
+    """A device without published peaks is an error, never a default."""
+    with pytest.raises(KeyError, match="no published peaks"):
+        polymul_roofline(preset("sw256"), batch=8, measured_s=1e-3,
+                         device_kind="cpu")
 
 
 def test_checkpointed_run(tmp_path, rng):
@@ -307,17 +318,13 @@ def test_engine_multiply_batch_checkpointed(tmp_path, rng, monkeypatch):
     np.testing.assert_array_equal(c, want)
 
 
-def test_engine_large_n_dispatch(monkeypatch):
-    """Single chip + n>8192: the engine picks the fused four-step kernel
-    on an accelerator backend and the XLA ShardedPlan on CPU."""
-    from tpu_ntt.ops.fourstep import PallasFourStep
+def test_engine_large_n_dispatch():
+    """Single device + n>8192: the engine picks the XLA four-step plan on
+    a one-device mesh, on the CPU and on a GPU alike."""
+    from tpu_ntt.dispatch import select_plan
     eng = PolyMultEngine(n=16384, q=65537)
-    assert eng.kind == "sharded"          # CPU test env
-    monkeypatch.setattr(PolyMultEngine, "_tpu_default",
-                        staticmethod(lambda: True))
-    eng = PolyMultEngine(n=16384, q=65537)
-    assert eng.kind == "fourstep-pallas"
-    assert isinstance(eng.plan, PallasFourStep)
+    assert eng.kind == "fourstep" and eng.plan.mesh.size == 1
+    assert select_plan(16384, 65537, platform="gpu") == "fourstep"
 
 
 # ---------------------------------------------------------------------------
@@ -379,8 +386,8 @@ def test_staged_session_buffer_reuse(rng):
 
 def test_staged_session_overhead_harness(rng):
     """measure_overhead runs and reports both paths (CPU numbers are not
-    meaningful; the dispatch-overhead CLAIM is measured on TPU by
-    test_tpu_parity.py::test_staged_session_on_device)."""
+    meaningful; on a GPU it runs in
+    test_gpu_parity.py::test_staged_session_on_device)."""
     from tpu_ntt.runtime.staged import StagedSession
     eng = PolyMultEngine(n=256, q=12289)
     sess = StagedSession(eng, batch=4)

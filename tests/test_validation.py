@@ -34,8 +34,9 @@ def test_engine_rejects_out_of_range(rng):
 
 
 def test_pallas_boundary_validation(rng):
-    from tpu_ntt.ops.butterfly import PallasPolymul
-    pk = PallasPolymul(preset("sw256"), tile=8, interpret=True)
+    from tpu_ntt.ops.fused import FusedPolymul
+    from tpu_ntt.transform import Plan
+    pk = FusedPolymul(Plan(preset("sw256")), interpret=True)
     a = rng.integers(0, 12289, (2, 256)).astype(np.int32)
     bad = a.copy()
     bad[1, 3] = 20000
@@ -48,8 +49,9 @@ def test_pallas_boundary_validation(rng):
 def test_validation_skips_traced_values(rng):
     """Entry points stay jit-composable: traced operands are not checked."""
     import jax
-    from tpu_ntt.ops.butterfly import PallasPolymul
-    pk = PallasPolymul(preset("sw256"), tile=8, interpret=True)
+    from tpu_ntt.ops.fused import FusedPolymul
+    from tpu_ntt.transform import Plan
+    pk = FusedPolymul(Plan(preset("sw256")), interpret=True)
     a = rng.integers(0, 12289, (2, 256)).astype(np.int32)
     with validated():
         out = jax.jit(lambda x, y: pk.polymul(x, y))(a, a)

@@ -1,13 +1,13 @@
-"""tpu-ntt: TPU-native NTT polynomial multiplication in JAX/Pallas.
+"""tpu-ntt: NTT polynomial multiplication in JAX, with Pallas kernels for GPUs.
 
 A from-scratch rebuild of the capabilities of the FPGA coprocessor in
 ``regras/NTT-based-polynomial-multiplier-FPGA`` (see SURVEY.md): forward and
 inverse number-theoretic transforms (Cooley–Tukey and Gentleman–Sande, all
 order variants), twiddle/parameter generation, word-level and Longa–Naehrig
 modular reduction, pointwise products, and full cyclic/negacyclic polynomial
-multiplication in Z_q[x]/(x^n ± 1) — with the per-chip compute expressed as
-vectorised XLA/Pallas kernels and pod-scale transforms sharded over a device
-mesh with collective stage exchanges.
+multiplication in Z_q[x]/(x^n ± 1) — with the per-device compute expressed
+as vectorised XLA graphs and fused Pallas kernels, and large transforms
+sharded over a device mesh with collective stage exchanges.
 """
 
 from .params import NTTParams, make_params, find_params, preset, PRESETS
@@ -20,8 +20,7 @@ __version__ = "0.1.0"
 __all__ = [
     "NTTParams", "make_params", "find_params", "preset", "PRESETS",
     "params", "ref", "Plan", "ShardedPlan", "BigQPlan", "Ring",
-    "IncompletePlan", "PolyMultEngine", "PallasPolymul",
-    "PallasIncompletePolymul",
+    "IncompletePlan", "PolyMultEngine", "FusedPolymul", "select_plan",
 ]
 
 
@@ -45,7 +44,10 @@ def __getattr__(name):
     if name == "PolyMultEngine":
         from .runtime.engine import PolyMultEngine
         return PolyMultEngine
-    if name in ("PallasPolymul", "PallasIncompletePolymul"):
-        from .ops import butterfly
-        return getattr(butterfly, name)
+    if name == "FusedPolymul":
+        from .ops.fused import FusedPolymul
+        return FusedPolymul
+    if name == "select_plan":
+        from .dispatch import select_plan
+        return select_plan
     raise AttributeError(name)

@@ -20,6 +20,8 @@ import sys
 
 import numpy as np
 
+from .dispatch import BACKENDS
+
 
 def _cmd_multiply(args):
     from .io import read_coefficients, write_coefficients
@@ -80,6 +82,7 @@ def _cmd_bench(args):
 
 
 def main(argv=None) -> int:
+    from .utils.jaxcache import enable_compile_cache
     ap = argparse.ArgumentParser(prog="tpu_ntt")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
@@ -91,7 +94,7 @@ def main(argv=None) -> int:
     m.add_argument("--n", type=int, default=0, help="ring size "
                    "(default: padded to power of two)")
     m.add_argument("--q", type=int, default=12289)
-    m.add_argument("--backend", default="auto")
+    m.add_argument("--backend", default="auto", choices=BACKENDS)
     m.add_argument("--cyclic", action="store_true",
                    help="Z_q[x]/(x^n - 1) — the hardware mode-3 "
                         "semantics (PolyMult.v computes the cyclic "
@@ -101,7 +104,7 @@ def main(argv=None) -> int:
     s = sub.add_parser("selftest", help="progressive bring-up self-tests")
     s.add_argument("--n", type=int, default=256)
     s.add_argument("--q", type=int, default=12289)
-    s.add_argument("--backend", default="auto")
+    s.add_argument("--backend", default="auto", choices=BACKENDS)
     s.set_defaults(fn=_cmd_selftest)
 
     g = sub.add_parser("params", help="parameter search / vector generation")
@@ -117,6 +120,7 @@ def main(argv=None) -> int:
     b.set_defaults(fn=_cmd_bench)
 
     args = ap.parse_args(argv)
+    enable_compile_cache()
     return args.fn(args)
 
 

@@ -1,4 +1,4 @@
-"""Per-chip compute kernels: modular arithmetic strategies and (Pallas/MXU)
+"""Per-chip compute kernels: modular arithmetic strategies and (fused Pallas, matmul)
 transform kernels."""
 
 from .modmul import Arith, MontArith, ShoupArith, select_arith

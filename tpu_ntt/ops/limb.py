@@ -1,9 +1,9 @@
 """Multi-limb modular arithmetic for big moduli (q up to 2^62) in int32
-TPU lanes.
+int32 vector lanes.
 
 The reference claims parametric K up to 64 bits by widening every datapath
 wire (defines.v:42) and chunking the multiplier into 16-bit DSP partial
-products (intMult.v:46-71).  The TPU twin chunks into **15-bit limbs** so
+products (intMult.v:46-71).  The accelerator twin chunks into **15-bit limbs** so
 every partial product and every accumulator provably stays below 2^31 in
 int32 vector lanes.
 

@@ -1,25 +1,26 @@
-"""MXU backend: the NTT as exact bf16-limb matrix multiplication.
+"""Matmul backend (``backend="matmul"``): the NTT as exact bf16-limb
+matrix multiplication.
 
-Where the FLOPs live on TPU is the 128x128 systolic array; this backend
-expresses the whole transform as dense matmuls so the MXU does the
-butterfly arithmetic that the VPU does in transform.py:
+The whole transform is expressed as dense matrix products, so a matrix
+unit does the butterfly arithmetic that transform.py does elementwise:
 
     spectrum = X @ F        F[i, pos] = psi^i · omega^(i·bitrev(pos))
 
-O(n²) MACs instead of O(n log n) VPU ops — profitable only while n is
-small enough that the MXU's ~2 orders of magnitude higher MAC throughput
-covers the n/log n factor (n ≤ ~512 on v5e; benchmark per generation).
+O(n²) multiply-adds instead of O(n log n) elementwise ops — worth it only
+while n is small enough that the matrix unit's higher rate covers the
+n/log n factor.  Whether it is on a given device is a measurement; the
+platform rule never picks this backend on its own.
 
 Exactness: operands are split into 7-bit limbs stored as bf16 (integers
 ≤ 127 are exact in bf16); each partial product is ≤ 127², and a row of n
-of them sums below 2^24 for n ≤ 1024 — exactly representable in the
-MXU's f32 accumulator, so the matmul result is an exact integer.  The
-four limb-pair partials are then reduced and recombined mod q in int32
-VPU lanes (Shoup constant multiplies).
+of them sums below 2^24 for n ≤ 1024 — exactly representable in the f32
+accumulator, so the matmul result is an exact integer (bf16 operands
+never take a TF32 path).  The four limb-pair partials are then reduced and
+recombined mod q in int32 (Shoup constant multiplies).
 
 This is the same narrow-multiplier decomposition the reference's
-``intMult.v:46-71`` performs with 16-bit DSP chunks — re-targeted at the
-MXU's native operand width.
+``intMult.v:46-71`` performs with 16-bit DSP chunks — re-targeted at a
+matrix unit's bf16 operand width.
 """
 
 from __future__ import annotations
@@ -48,7 +49,7 @@ def supported(params: NTTParams) -> bool:
 
 
 class MatmulNTT:
-    """Plan-compatible polymul computed on the MXU."""
+    """Plan-compatible polymul computed as limb matrix products."""
 
     def __init__(self, params: NTTParams):
         if not supported(params):

@@ -1,6 +1,6 @@
-"""Vectorized modular multiply-reduce strategies for int32 TPU lanes.
+"""Vectorized modular multiply-reduce strategies for int32 vector lanes.
 
-TPU-native replacement for the reference's modular arithmetic stack:
+Vectorised replacement for the reference's modular arithmetic stack:
 
 - ``intMult.v`` (K×K→2K multiplier built from 16-bit DSP chunks) and
   ``ModRed.v``/``ModRed_sub.v`` (Mert et al. word-level Montgomery-style
@@ -8,7 +8,7 @@ TPU-native replacement for the reference's modular arithmetic stack:
 - ``ntt_red.c:34-46`` (``red``/``mul_red`` Longa–Naehrig reduction),
 - ``ntt.C:69-106`` (``add_mod``/``sub_mod``/``modq``).
 
-TPU VPU lanes are int32 with wrap-around semantics and no 64-bit multiply,
+The lanes are int32 with wrap-around semantics and no 64-bit multiply,
 so every strategy here is built from int32 products that provably stay
 below 2^31:
 
@@ -200,7 +200,7 @@ class MontArith(Arith):
 class FBarrettArith(Arith):
     """Float-assisted Barrett multiplication for q < 2^23 (exact).
 
-    The quotient estimate runs on f32 VPU lanes, the residual on int32
+    The quotient estimate runs on f32 lanes, the residual on int32
     wraparound lanes:
 
         t  = trunc(f32(x) · f32(w/q))          # |t − ⌊x·w/q⌋| ≤ 3
@@ -213,7 +213,7 @@ class FBarrettArith(Arith):
     residual x·w − t·q then lies in (−3q, 4q) ⊂ (−2^31, 2^31) and int32
     wraparound arithmetic recovers it exactly even though the raw products
     are ~2^46.  This replaces the reference's word-level reduction chain
-    (ModRed_sub.v:35-60) with the TPU's *other* vector unit: the f32 path
+    (ModRed_sub.v:35-60) with the float unit: the f32 path
     computes the quotient the FPGA derives digit-serially.
 
     Costs 3 multiplies + 2 lane conversions per constant multiply — half

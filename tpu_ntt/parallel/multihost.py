@@ -1,9 +1,9 @@
-"""Multi-host pod-slice setup.
+"""Multi-host setup.
 
-The reference's only interconnect is one PCIe lane to one FPGA; the TPU
-rebuild scales across hosts with ``jax.distributed`` over DCN and a global
-mesh whose sequence-parallel axis rides ICI within each slice.  This
-module wraps the initialization dance so a pod run is:
+The reference's only interconnect is one PCIe lane to one FPGA; this
+rebuild scales across hosts with ``jax.distributed`` and a global
+mesh whose sequence-parallel axis stays within each host.  This
+module wraps the initialization dance so a multi-host run is:
 
     from tpu_ntt.parallel import multihost
     mesh = multihost.initialize_and_mesh()          # on every host
@@ -30,8 +30,7 @@ logger = logging.getLogger("tpu_ntt.multihost")
 # a failed jax.distributed.initialize() must raise, not silently degrade
 # to N independent single-host jobs (VERDICT r4 weak #4)
 _DIST_ENV = ("COORDINATOR_ADDRESS", "JAX_COORDINATOR_ADDRESS",
-             "MEGASCALE_COORDINATOR_ADDRESS", "JAX_NUM_PROCESSES",
-             "JAX_PROCESS_ID")
+             "JAX_NUM_PROCESSES", "JAX_PROCESS_ID")
 
 
 def initialize(coordinator: str | None = None, num_processes: int | None = None,
@@ -81,13 +80,12 @@ def initialize(coordinator: str | None = None, num_processes: int | None = None,
 
 def global_mesh(axes=("dp", "sp"), dp: int = 1, sp1: int | None = None):
     """Mesh over ALL devices (across hosts): dp outermost over hosts so
-    the sequence-parallel all_to_all stays inside a host/slice (ICI),
-    never on DCN.
+    the sequence-parallel all_to_all stays inside a host (NVLink),
+    never on the network between hosts.
 
     Hierarchical form: ``axes=("dp", "sp1", "sp2")`` with ``sp1`` the
     first sp factor — the engine/ShardedPlan then run the per-axis
-    exchange with each all_to_all on its own torus dimension (map sp1
-    and sp2 onto the slice's two physical mesh dimensions)."""
+    exchange, one all_to_all per axis."""
     import jax
     devs = np.array(jax.devices())
     if devs.size % dp:

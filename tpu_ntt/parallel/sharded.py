@@ -15,8 +15,8 @@ transpose), via the classic **four-step/Bailey decomposition** n = n1·n2:
    twiddles (valid: ψ^n2 is a primitive 2n1-th root);
 3. elementwise twist ψ^i2 · ω^(i2·k1) — local, precomputed in the same
    bit-reversed k1 order the column NTT emits (no unscrambling);
-4. ``all_to_all`` transpose (the ICI replacement for the FPGA's
-   brscramble crossbar — one collective for all log(n) stages);
+4. ``all_to_all`` transpose (the interconnect's replacement for the
+   FPGA's brscramble crossbar — one collective for all log(n) stages);
 5. size-n2 NTTs along the rows — local, plain cyclic.
 
 The spectrum comes out in "four-step order" (bit-reversed per factor ×
@@ -25,8 +25,8 @@ reference keeping its spectrum bit-reversed between NTT and INTT
 (PolyMult.v:222-227).  The inverse mirrors each step, with every scale
 (n1⁻¹·n2⁻¹, Montgomery fix) folded into the single un-twist table.
 
-Works on any mesh the axis divides: single host 8 virtual devices, one
-v5e chip (D=1), or a multi-host slice (build the mesh over DCN with
+Works on any mesh the axis divides: 8 virtual host devices, one GPU
+(D=1), the GPUs of one host, or several hosts (build the mesh over DCN with
 ``jax.distributed.initialize`` — see ``multihost.py``).
 """
 
@@ -43,7 +43,8 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from ..params import NTTParams, modinv
 from ..transform import Plan
 
-__all__ = ["ShardedPlan", "make_mesh", "make_mesh_hier", "dp_polymul"]
+__all__ = ["ShardedPlan", "make_mesh", "make_mesh_hier", "mesh_axes",
+           "dp_polymul"]
 
 
 def make_mesh(n_devices: int | None = None, axis: str = "x") -> Mesh:
@@ -57,12 +58,36 @@ def make_mesh(n_devices: int | None = None, axis: str = "x") -> Mesh:
 def make_mesh_hier(d1: int, d2: int,
                    axes: tuple[str, str] = ("sp1", "sp2")) -> Mesh:
     """2-D sequence-parallel mesh (d1, d2) for the hierarchical
-    exchange; on real hardware map the two axes onto the two physical
-    torus dimensions so each all_to_all rides its own ring."""
+    exchange: one all_to_all per axis instead of one over all devices."""
     devs = jax.devices()
     if d1 * d2 > len(devs):
         raise ValueError(f"need {d1 * d2} devices, have {len(devs)}")
     return Mesh(np.array(devs[:d1 * d2]).reshape(d1, d2), axes)
+
+
+def mesh_axes(mesh: Mesh):
+    """(transform axis, batch axis or None) of a mesh.
+
+    The transform runs over ("sp1", "sp2") when both are named (the
+    hierarchical exchange), else "x", else "sp", else the last axis that
+    is not "dp".  A "dp" axis shards the batch and never carries the
+    transform."""
+    names = list(mesh.shape)
+    if "sp1" in names and "sp2" in names:
+        axis = ("sp1", "sp2")
+    elif "x" in names:
+        axis = "x"
+    elif "sp" in names:
+        axis = "sp"
+    else:
+        non_dp = [nm for nm in names if nm != "dp"]
+        if not non_dp:
+            raise ValueError(
+                "mesh has only a 'dp' axis — a dp axis shards the batch, "
+                "never the transform; use parallel.sharded.dp_polymul for "
+                "pure data parallelism, or name a transform axis 'x'/'sp'")
+        axis = non_dp[-1]
+    return axis, ("dp" if "dp" in names else None)
 
 
 def dp_polymul(plan, mesh: Mesh, axis: str = "dp"):
@@ -111,16 +136,16 @@ class ShardedPlan:
 
     **Hierarchical mode** (``axis=("sp1", "sp2")``): the four-step
     transpose decomposes into one ``all_to_all`` per mesh axis, innermost
-    first — each rides its OWN torus dimension as a small-ring collective
-    instead of one D-sized ring hop chain, cutting transpose link-time
-    from ∝(D-1) to ∝(D1-1)+(D2-1) (2.5× at D=16 as 4×4).  The algebra
+    first — each a collective over a group of D1 or D2 devices instead of
+    one over all D.  Whether that pays on a given interconnect is a
+    measurement (``chip_smoke.py --four`` times both forms).  The algebra
     costs nothing: after the per-axis exchanges each device holds its
     rows in a layout that is exactly the sharding over the REVERSED axes
     tuple with columns contiguous in natural order, so the spectrum spec
     is ``P(batch, (sp2, sp1), None)`` and no local permutation exists
-    anywhere.  This is the TPU re-expression of the reference's
+    anywhere.  This is the mesh re-expression of the reference's
     brscramble network scaling with PE_DEPTH (AddressGenerator.v:310-337)
-    past a single ring of 8 (VERDICT r4 next #3).
+    past a single ring of 8.
     """
 
     def __init__(self, params: NTTParams, mesh: Mesh,
@@ -218,7 +243,7 @@ class ShardedPlan:
         return jnp.swapaxes(y, -1, -2)                    # (B, n1, L2)
 
     def _fwd_a2a(self, y):
-        """Forward phase 2: the ICI transpose (brscramble analog).
+        """Forward phase 2: the interconnect transpose (brscramble analog).
 
         Hierarchical: one all_to_all per axis, INNERMOST first.  After
         exchanging over the innermost axis the received column blocks of
@@ -268,7 +293,7 @@ class ShardedPlan:
         # both forward transforms ride ONE all_to_all (the forward body
         # is batch-elementwise, so stacking a and b along the batch axis
         # halves the per-product collective count: 2 instead of 3 —
-        # same bytes, fewer latency terms on the ICI critical path)
+        # same bytes, fewer latency terms on the collective critical path)
         B = a.shape[0]
         fab = self._fwd_body(jnp.concatenate([a, b], axis=0))
         return self._inv_body(self.arith.mul(fab[:B], fab[B:]))
@@ -281,8 +306,7 @@ class ShardedPlan:
         pairs), so the whole chain is ONE stacked forward collective +
         k spectral pointwise products + ONE inverse collective — k_t
         drops from 3 to 2 transform-transposes per product asymptotically
-        (icimodel ``chained=True``; SCALING.md §2 residual-headroom item,
-        VERDICT r3 next #4).  ``stacked``: (B·(k+1), n1, L2) — a then
+        (SCALING.md §2).  ``stacked``: (B·(k+1), n1, L2) — a then
         b1..bk along the batch axis."""
         B = stacked.shape[0] // (k + 1)
         f = self._fwd_body(stacked)                       # 1 all_to_all
@@ -310,8 +334,8 @@ class ShardedPlan:
     def _polymul_body_overlap(self, a, b):
         """Double-buffered polymul: the batch splits in halves and each
         half's all_to_all is issued before the other half's local
-        transform work, so XLA's async collectives ride the ICI transfer
-        under the VPU compute (icimodel ``overlap=True``).  Bit-exact
+        transform work, so XLA's async collectives ride the interconnect
+        transfer under the local compute.  Bit-exact
         with _polymul_body; 4 collectives of half volume instead of 2."""
         B = a.shape[0]
         if B < 2 or B % 2:

@@ -7,7 +7,7 @@ The reference triplicates its constants across Verilog macros
 them in sync by hand.  Here everything derives from one frozen
 :class:`NTTParams` object.
 
-Covers, TPU-side, what the reference spreads over:
+Covers, on the accelerator side, what the reference spreads over:
 
 - prime search / root-of-unity search
   (``test_generator/test_generator.py:83-109``,

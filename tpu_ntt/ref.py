@@ -58,6 +58,22 @@ def schoolbook_negacyclic(a, b, q: int) -> np.ndarray:
     return np.array(out, dtype=np.int64 if q < 1 << 62 else object)
 
 
+def schoolbook_rows(a, b, q: int, negacyclic: bool = True) -> np.ndarray:
+    """Row-wise products of two (batch, n) arrays in Z_q[x]/(x^n ± 1),
+    vectorised over the batch in int64 — the schoolbook above for whole
+    benchmark batches.  Exact while n·(q-1)² < 2^63."""
+    a = np.asarray(a, dtype=np.int64)
+    b = np.asarray(b, dtype=np.int64)
+    n = a.shape[-1]
+    if n * (q - 1) ** 2 >= 1 << 63:
+        raise ValueError(f"n={n}, q={q}: int64 convolution would overflow")
+    conv = np.zeros(a.shape[:-1] + (2 * n,), dtype=np.int64)
+    for i in range(n):
+        conv[..., i:i + n] += a[..., i:i + 1] * b
+    lo, hi = conv[..., :n], conv[..., n:]
+    return (lo - hi if negacyclic else lo + hi) % q
+
+
 def schoolbook_cyclic(a, b, q: int) -> np.ndarray:
     """Product in Z_q[x]/(x^n - 1): res[k] = (conv[k] + conv[k+n]) mod q —
     what the hardware mode-3 flow computes (it never applies the psi twist;
@@ -85,7 +101,7 @@ def schoolbook_cyclic(a, b, q: int) -> np.ndarray:
 #     std2rev: t = n/2..1 halving;  pairs (s, s+t), s stepping 2t, twiddle by j
 #
 # All four reshape to a (blocks, 2, width) view where the butterfly is one
-# vectorised op — exactly the shape the TPU kernels use.
+# vectorised op — exactly the shape the XLA plans use.
 
 
 def _view(a: np.ndarray, width: int) -> np.ndarray:

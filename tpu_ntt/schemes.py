@@ -48,20 +48,15 @@ class IncompletePlan:
     a primitive 2m-th root mod q.  L=0 degenerates to a full Plan.
     """
 
-    def __init__(self, n: int, q: int, levels: int | None = None,
-                 backend: str = "auto", interpret: bool = False):
+    def __init__(self, n: int, q: int, levels: int | None = None):
         from .params import is_prime
         if not is_prime(q):
             raise ValueError(f"q={q} is not prime")
-        if backend not in ("auto", "xla", "pallas"):
-            raise ValueError(f"backend must be auto/xla/pallas: {backend}")
         two_pow = _max_two_power(q - 1)
         if levels is None:
             levels = max(0, (2 * n // two_pow).bit_length() - 1)
         self.levels = levels
         self.n, self.q = n, q
-        self.backend = backend
-        self._interpret = interpret
         m = n >> levels
         if m < 2 or 2 * m > two_pow:
             raise ValueError(
@@ -71,37 +66,6 @@ class IncompletePlan:
         self.sub = Plan(make_params(m, q))          # negacyclic size-m plan
         self.arith = self.sub.arith
         self._tables()
-
-    @functools.cached_property
-    def fast(self):
-        """The fused Pallas twin (ops/butterfly.PallasIncompletePolymul)
-        when it applies: levels=1, q < 2^14 with an order-n root, n >= 16,
-        and a real accelerator (or ``backend="pallas"``, which runs the
-        kernel in interpret mode on CPU).  This is what ``polymul`` /
-        ``matvec`` dispatch to, so the README-quickstart entry points
-        (``kyber_plan``/``auto_plan``) reach the fast kernel by default —
-        the reference's mode FSM always reaches the accelerator
-        (PolyMult.v:110-124); so must the public surface (VERDICT r3
-        missing #1).  None when structurally unsupported or on CPU under
-        ``backend="auto"``."""
-        if self.backend == "xla":
-            return None
-        if (self.levels != 1 or self.q >= (1 << 14) or self.n < 16
-                or (self.q - 1) % self.n != 0):
-            return None
-        import jax
-        try:
-            on_tpu = jax.devices()[0].platform == "tpu"
-        except Exception:
-            on_tpu = False
-        # GPU/CPU keep the portable XLA composition under "auto" (the
-        # pltpu kernels don't lower off-TPU); backend="pallas" forces
-        # the kernel in interpret mode there
-        if not on_tpu and self.backend != "pallas":
-            return None
-        from .ops.butterfly import PallasIncompletePolymul
-        return PallasIncompletePolymul(
-            self.n, self.q, interpret=self._interpret or not on_tpu)
 
     def _tables(self):
         p = self.sub.params
@@ -167,30 +131,22 @@ class IncompletePlan:
         Plan.pointwise (carries arith.pointwise_fix^-1 when != 1)."""
         return self._basemul(fa, fb)
 
-    def polymul_xla(self, a, b):
-        """The XLA split/sub-transform/basemul composition (always
-        available; the ``fast`` kernel's semantic twin)."""
+    def polymul(self, a, b):
+        """Negacyclic product: split, sub-transforms, base-case product,
+        inverse."""
         fa = self.forward(a)
         fb = self.forward(b)
         return self.inverse(self._basemul(fa, fb))
 
-    def polymul(self, a, b):
-        """Negacyclic product — through the fused Pallas kernel when
-        :attr:`fast` applies, else the XLA composition."""
-        if self.fast is not None:
-            return self.fast.polymul(a, b)
-        return self.polymul_xla(a, b)
-
     @functools.cached_property
     def polymul_jit(self):
-        if self.fast is not None:
-            return self.fast._full            # already jitted
-        return jax.jit(self.polymul_xla)
+        return jax.jit(self.polymul)
 
-    def matvec_xla(self, A, s):
-        """XLA module product: one forward per vector entry, spectral
-        basemul-accumulate, one inverse per output row (the base-case
-        product is linear, so sums share one inverse)."""
+    def matvec(self, A, s):
+        """Module product A (..., r, c, n) x s (..., c, n) -> (..., r, n)
+        — the ML-KEM A_hat*s_hat pattern: one forward per vector entry,
+        spectral basemul-accumulate, one inverse per output row (the
+        base-case product is linear, so sums share one inverse)."""
         A = jnp.asarray(A, jnp.int32)
         s = jnp.asarray(s, jnp.int32)
         r, c = A.shape[-3], A.shape[-2]
@@ -209,44 +165,24 @@ class IncompletePlan:
             rows.append(self.inverse(acc))
         return jnp.stack(rows, axis=-2)
 
-    def matvec(self, A, s):
-        """Module product A (..., r, c, n) x s (..., c, n) -> (..., r, n)
-        — the ML-KEM A_hat*s_hat pattern.  Dispatches to the ONE-kernel
-        fused module product (butterfly._make_incomplete_matvec_kernel)
-        when :attr:`fast` applies and the (r, c) shape fits its
-        envelope, else the XLA composition."""
-        A = jnp.asarray(A)
-        s = jnp.asarray(s)
-        if (self.fast is not None and A.ndim >= 3
-                and self.fast.matvec_supported(A.shape[-3], A.shape[-2])):
-            return self.fast.matvec(A, s)
-        return self.matvec_xla(A, s)
-
     @functools.cached_property
     def matvec_jit(self):
-        # jit the DISPATCHER: the (r, c) shape branch is static at trace
-        # time, so supported shapes inline the fused kernel and
-        # unsupported ones still compile the whole XLA composition as
-        # one graph (returning the bare dispatcher would run the
-        # fallback eagerly, op by op).  Like every *_jit entry in the
-        # library, this skips the opt-in domain validation (tracers);
-        # use matvec() for the validated host boundary.
-        return jax.jit(self.matvec) if self.fast is not None \
-            else jax.jit(self.matvec_xla)
+        return jax.jit(self.matvec)
 
 
-def kyber_plan(backend: str = "auto") -> IncompletePlan:
+def kyber_plan(backend: str = "auto"):
     """ML-KEM ring: n=256, q=3329, one missing level (128 quadratic
-    residues) — the real Kyber parameter point.  ``polymul``/``matvec``
-    dispatch to the fused Pallas kernels on a real accelerator (see
-    :attr:`IncompletePlan.fast`)."""
-    return IncompletePlan(256, 3329, levels=1, backend=backend)
+    residues) — the real Kyber parameter point.  The plan the engine
+    builds (:func:`~tpu_ntt.dispatch.build_plan`): an
+    :class:`IncompletePlan`, wrapped in the fused kernel on a GPU."""
+    from .dispatch import build_plan
+    return build_plan(256, 3329, backend=backend)[1]
 
 
 def auto_plan(n: int, q: int, backend: str = "auto"):
-    """Full Plan when q ≡ 1 (mod 2n), else an IncompletePlan (whose
-    ``polymul``/``matvec`` reach the fused Pallas kernels on a real
-    accelerator by default)."""
-    if (q - 1) % (2 * n) == 0:
-        return Plan(make_params(n, q))
-    return IncompletePlan(n, q, backend=backend)
+    """The plan the engine builds for Z_q[x]/(x^n+1)
+    (:func:`~tpu_ntt.dispatch.build_plan`): a full Plan when
+    q ≡ 1 (mod 2n), else an IncompletePlan; the fused kernel wraps either
+    on a GPU where it covers the ring."""
+    from .dispatch import build_plan
+    return build_plan(n, q, backend=backend)[1]

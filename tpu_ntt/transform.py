@@ -30,10 +30,9 @@ All eight plain CT/GS × std2rev/rev2std variants of ntt.C are also exposed
 through :meth:`Plan.ntt` for API/semantics parity with the C library.
 
 Every stage is one vectorised butterfly over a ``(..., blocks, 2, width)``
-view — reshapes XLA lowers to relayouts, arithmetic stays on the VPU in
-int32 lanes (see ops/modmul.py).  Pallas kernels (ops/) override this path
-for the hot configurations; this module is the portable/jnp reference that
-they are tested against.
+view — reshapes XLA lowers to relayouts, arithmetic in int32 lanes (see
+ops/modmul.py).  The fused GPU kernel (ops/fused.py) serves the small rings
+on a GPU; this module is the portable XLA path it is tested against.
 """
 
 from __future__ import annotations

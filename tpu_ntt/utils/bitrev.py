@@ -1,6 +1,6 @@
 """Bit-reversal permutation utilities.
 
-TPU-native replacements for the reference's bit-reversal helpers:
+Vectorised replacements for the reference's bit-reversal helpers:
 - ``intReverse``/``indexReverse`` (Hardware_Multiplier/test_generator/helper.py:38-49)
 - ``bitrev_shuffle`` (NTT_Software/.../NTT/ntt.C:27-44)
 - ``bit_reverse_index`` (Hardware_Multiplier/PolyMult.v:81-87)

@@ -4,42 +4,64 @@ The reference's observability is wall-clock timing around whole products
 (``time_testing256.c:144-187``, host-side HW timing in
 ``NTT_PCIECommunicationv2.c:162-229``) plus static Quartus timing reports.
 Here: the same warm-up + N-run methodology as a reusable timer, a
-jax.profiler trace hook (the TPU equivalent of a ModelSim waveform), and a
-roofline model that plays the role of the Fmax/resource reports — how close
-a measured run is to the chip's compute/bandwidth ceilings.
+jax.profiler trace hook (the accelerator equivalent of a ModelSim
+waveform), and a roofline model that plays the role of the Fmax/resource
+reports — how close a measured run is to the device's published compute
+and bandwidth peaks.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import subprocess
 import time
 
 import numpy as np
 
-__all__ = ["Timer", "time_fn", "trace", "polymul_roofline", "RooflineReport"]
+__all__ = ["Timer", "time_fn", "trace", "polymul_roofline", "RooflineReport",
+           "PEAKS", "device_peaks", "device_info"]
 
-# v5e per-chip ceilings.  DEFAULT_VPU_INT_OPS is a spec-sheet ESTIMATE
-# (lane count x assumed issue width x assumed clock) used by the op-count
-# roofline model; the measured, compiler-faithful ceiling is the
-# per-flavor butterfly-only kernel rate in CALIBRATION.json
-# (utils/calibrate.butterfly_ceiling), which bench.py reports against as
-# ``pe_fraction``.  The HBM rate is replaced by the measured stream
-# bandwidth when a calibration artifact exists.
-DEFAULT_VPU_INT_OPS = 3.9e12     # 8x128 lanes x ~4 ALUs x ~0.94 GHz
-DEFAULT_HBM_BYTES = 8.1e11       # ~810 GB/s spec; measured ~640 GB/s
+# Published peaks per device, keyed by ``jax.Device.device_kind``.  A
+# device that is not here is an error, never a default.
+#   hbm_bytes_per_s: NVIDIA H100 SXM data sheet, 3.35 TB/s.
+#   int32_ops_per_s: 132 SMs x 64 INT32 lanes (Hopper architecture white
+#     paper) x 1.98 GHz boost clock — the same clock as the data sheet's
+#     67 TFLOP/s float32 (132 x 128 FP32 lanes x 2 x 1.98 GHz).
+# Both assume the card's full 700 W power limit.
+PEAKS = {
+    "NVIDIA H100 80GB HBM3": {"hbm_bytes_per_s": 3.35e12,
+                              "int32_ops_per_s": 132 * 64 * 1.98e9},
+}
 
-def _apply_calibration() -> None:
-    global DEFAULT_HBM_BYTES
+
+def device_peaks(device_kind: str) -> dict:
+    """The published peaks of ``device_kind``; KeyError if unknown."""
     try:
-        from .calibrate import load_calibration
-        cal = load_calibration()
-    except Exception:
-        cal = None
-    if cal and cal.get("hbm_bytes_per_s", 0) > 0:
-        DEFAULT_HBM_BYTES = float(cal["hbm_bytes_per_s"])
+        return PEAKS[device_kind]
+    except KeyError:
+        raise KeyError(f"no published peaks for device {device_kind!r}; "
+                       f"known: {sorted(PEAKS)}") from None
 
-_apply_calibration()
+
+def device_info() -> dict:
+    """The devices JAX reports (``platform``, ``kind``, ``count``) and,
+    on a GPU, the card's ``name`` and ``power_limit`` as ``nvidia-smi``
+    gives them (a card below its maximum limit runs slower under load,
+    so every number names the limit it was taken at)."""
+    import jax
+    devs = jax.devices()
+    info = {"platform": devs[0].platform, "kind": devs[0].device_kind,
+            "count": len(devs)}
+    if info["platform"] == "gpu":
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, check=True, timeout=60).stdout
+        info["nvidia_smi"] = out.strip().splitlines()[0]
+        info["name"], info["power_limit"] = (
+            f.strip() for f in info["nvidia_smi"].split(",", 1))
+    return info
 
 
 class Timer:
@@ -94,7 +116,7 @@ class RooflineReport:
     butterflies: int
     measured_s: float
     ops_per_butterfly: float
-    vpu_ops_ceiling: float
+    int_ops_ceiling: float
     hbm_bytes: int
     hbm_ceiling: float
 
@@ -104,7 +126,7 @@ class RooflineReport:
 
     @property
     def compute_bound_s(self) -> float:
-        return self.butterflies * self.ops_per_butterfly / self.vpu_ops_ceiling
+        return self.butterflies * self.ops_per_butterfly / self.int_ops_ceiling
 
     @property
     def memory_bound_s(self) -> float:
@@ -115,35 +137,35 @@ class RooflineReport:
         return max(self.compute_bound_s, self.memory_bound_s)
 
     @property
+    def bound(self) -> str:
+        return ("compute" if self.compute_bound_s >= self.memory_bound_s
+                else "HBM")
+
+    @property
     def roofline_fraction(self) -> float:
         """Measured throughput as a fraction of the model's bound."""
         return self.roofline_s / self.measured_s
 
     def __str__(self):
-        lim = ("compute" if self.compute_bound_s >= self.memory_bound_s
-               else "HBM")
         return (f"{self.butterflies_per_s / 1e9:.1f} G butterflies/s — "
-                f"{100 * self.roofline_fraction:.0f}% of {lim}-bound "
+                f"{100 * self.roofline_fraction:.0f}% of {self.bound}-bound "
                 f"roofline ({self.roofline_s * 1e6:.1f} µs bound vs "
                 f"{self.measured_s * 1e6:.1f} µs measured)")
 
 
 def polymul_roofline(params, batch: int, measured_s: float,
-                     ops_per_butterfly: float = 32.0,
-                     vpu_ops: float = DEFAULT_VPU_INT_OPS,
-                     hbm_bytes_per_s: float = DEFAULT_HBM_BYTES,
-                     ) -> RooflineReport:
+                     device_kind: str,
+                     ops_per_butterfly: float = 20.0) -> RooflineReport:
     """Roofline for one batched polymul call (2 fwd + 1 inv transform,
-    3 arrays of HBM traffic).
+    3 arrays of HBM traffic) against the published peaks of
+    ``device_kind`` (:data:`PEAKS`; KeyError for an unknown device).
 
-    ``ops_per_butterfly`` default models the lane-masked radix-2 Shoup
-    kernel (ops/butterfly.py): ~16 elementwise int32 ops per stage
-    position x 2 positions per butterfly (SIMD masking computes both
-    branch values full-width), rolls excluded.  The v5e fused kernel
-    measures ~78% of this bound (94.6 G butterflies/s vs the 122 G
-    model ceiling at 3.9e12 lane-ops/s).  Montgomery-flavor kernels
-    (2^14 <= q < 2^29) cost ~2x: pass ~64."""
+    ``ops_per_butterfly``: int32 operations of one butterfly, counted
+    from ops/modmul — about 20 for Shoup (one constant multiply, an add,
+    a subtract, their conditional corrections)."""
+    peaks = device_peaks(device_kind)
     bf = 3 * batch * (params.n // 2) * params.log2n
     traffic = 3 * batch * params.n * 4          # a, b in; c out
-    return RooflineReport(bf, measured_s, ops_per_butterfly, vpu_ops,
-                          traffic, hbm_bytes_per_s)
+    return RooflineReport(bf, measured_s, ops_per_butterfly,
+                          peaks["int32_ops_per_s"], traffic,
+                          peaks["hbm_bytes_per_s"])
